@@ -6,25 +6,42 @@
 Phases, each of which fails the run loudly:
 
 1. card: the CUDA device's name, power limit and maximum SM clock;
-2. build: nvcc compiles the four kernels of xelis_he_tpu_torch/csrc (K1-K4);
+2. build: nvcc compiles the seven kernels of xelis_he_tpu_torch/csrc (K1-K7),
+   one process each, side by side;
 3. kernels vs plain: each kernel's wrapper on the card against its plain
-   PyTorch version on the card, on edge cases at main-path scale (bit-exact:
-   every output is canonical), and against host references (pyref);
+   PyTorch version on the card, on edge cases (bit-exact: every output is
+   canonical), against host references (pyref), and K6 against K2;
 4. main path: a block of ``--txs`` one-transfer transactions, built as
    bench.py builds it, verified through xelis_he_tpu_torch.verify_batch on
    ``Accelerator()``: one counted verify (launch counts, synchronising calls,
    receiver balance, no host-path block), then ``--iters`` timed verifies;
 5. rejects: a tampered signature, fee and range proof each raise
    ProofVerificationError;
-6. kernel times: each kernel and its plain version on the inputs of its
-   largest main-path launch (CUDA events, median of 5), with the card's bound;
-7. trace: one more verify under torch.profiler, whose CUDA activity gives
-   the device's busy time and idle share during a verify.
+6. the lane-kernel switches: the same block verified with quad lanes off
+   (every lane through K5) and with the tier switch off (K6 in K2's place):
+   accepted, the default verify's balances, one synchronising call, K2 not
+   launched;
+7. generic MSM: ``accel.msm`` on one transaction's range-proof lanes (the K5
+   branch) and on a lane count that fills packed tiles (the K2 branch),
+   against pyref; ``verify(tx, state, msm=accel.msm)`` over 64 transactions;
+   ``MsmEngine.msm_daa`` at 512 lanes (K7);
+8. signatures and conversions: ``verify_signatures`` on the block's
+   signatures with one made bad; ``decompress_many_lazy``, ``decompress_many``
+   and ``compress_many`` round trips on the block's encodings;
+9. the Python block path: the first 2,000 transactions of the block with
+   XELIS_NATIVE_PREVERIFY=0 (``_fused_deferred``): accepted, no host-path
+   block, one synchronising call;
+10. kernel times: each kernel and its plain version on the inputs of its
+    largest launch on its path (CUDA events, median of 5), with the card's
+    bound;
+11. trace: one more default verify under torch.profiler, whose CUDA activity
+    gives the device's busy time and idle share during a verify.
 
-Standard output ends with one {"kernels": [...]} JSON line, the card's name
-and power limit as nvidia-smi prints them, and {"ok": true, "device": {...}}.
-Long logs go to chiprun_out/.  Without a CUDA device, or outside a checkout
-of the repository, it exits non-zero and prints no result.
+Every path is driven with the launch counts set to 0 just before it and read
+just after.  Standard output ends with one {"kernels": [...]} JSON line, the
+card's name and power limit as nvidia-smi prints them, and {"ok": true,
+"device": {...}}.  Long logs go to chiprun_out/.  Without a CUDA device, or
+outside a checkout of the repository, it exits non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -33,6 +50,7 @@ import argparse
 import copy
 import gc
 import json
+import os
 import pathlib
 import random
 import statistics
@@ -57,7 +75,14 @@ KERNELS = {
     "windowed_lanes_k8": ("xelis_he_tpu_torch/csrc/windowed_lanes.cu", "xelis_he_tpu/ops/pallas_msm.py:1468"),
     "tile_sums": ("xelis_he_tpu_torch/csrc/tile_sums.cu", "xelis_he_tpu/ops/pallas_msm.py:453"),
     "compress": ("xelis_he_tpu_torch/csrc/compress.cu", "xelis_he_tpu/ops/pallas_msm.py:559"),
+    "windowed_lanes": ("xelis_he_tpu_torch/csrc/windowed_lane.cu", "xelis_he_tpu/ops/pallas_msm.py:894"),
+    "windowed_lanes_k8_fe15": ("xelis_he_tpu_torch/csrc/windowed_lanes_fe15.cu",
+                               "xelis_he_tpu/ops/pallas_msm.py:1364"),
+    "daa_lanes": ("xelis_he_tpu_torch/csrc/daa_lanes.cu", "xelis_he_tpu/ops/pallas_msm.py:411"),
 }
+# the kernels of the default verify (phase 4); the others run on the paths of phases 6-9
+DEFAULT_PATH = ("decompress", "windowed_lanes_k8", "tile_sums", "compress")
+EDGE_SCALARS = [0, 1, L - 1, L - 1, (1 << 253) - 1, 2, L - 2, 1 << 128]  # tests/test_fe13.py's
 
 
 def log(*args) -> None:
@@ -193,8 +218,7 @@ def check_kernels(rng: random.Random, device) -> dict:
     pool_pts = [pts[i] for i in good] + host[:512]
     pick = [[rng.randrange(len(pool_pts)) for _ in range(S)] for _ in range(K.K_PACK)]
     scal = [[rng.randrange(L) for _ in range(S)] for _ in range(K.K_PACK)]
-    edges = [0, 1, L - 1, 2**252 + 27742317777372353535851937790883648493 - 1,
-             (1 << 253) - 1, 2, L - 2, 1 << 128]
+    edges = EDGE_SCALARS
     for k in range(K.K_PACK):
         for j, e in enumerate(edges):
             scal[k][j] = edges[(j + k) % len(edges)]
@@ -242,6 +266,50 @@ def check_kernels(rng: random.Random, device) -> dict:
     errs["tile_sums"] = expect_equal("K3 rows", sums, K.tile_sums_plain(k3_in, tile))
     if (K.compress(sums[:1]) != 0).any():
         raise AssertionError("K3: the sum of an identity tile is not the identity")
+
+    # K6 on K2's 2048 slots: against its plain version and against K2 (two
+    # field tiers, one answer)
+    acc15 = K.windowed_lanes_k8_fe15(k2_pts, k2_dig)
+    errs["windowed_lanes_k8_fe15"] = worst(
+        expect_equal("K6 rows", acc15, K.windowed_lanes_k8_fe15_plain(k2_pts, k2_dig)),
+        expect_equal("K6 rows against K2's", acc15, acc),
+    )
+
+    # K5 on 4096 lanes: pool points, edge scalars, zero scalars, identity lanes
+    n5 = 4096
+    lane_pick = [rng.randrange(len(pool_pts)) for _ in range(n5)]
+    lane_scal = [rng.randrange(L) for _ in range(n5)]
+    lane_scal[: len(edges)] = edges
+    for i in range(16, 24):
+        lane_scal[i] = 0
+    k5_pts = pool_rows[torch.tensor(lane_pick, device=device)].contiguous()
+    k5_pts[24:32] = K.identity_rows(8, device)
+    k5_dig = torch.from_numpy(K.recode_signed4(lane_scal).astype(np.uint8)).to(device)
+    lanes = K.windowed_lanes(k5_pts, k5_dig)
+    errs["windowed_lanes"] = expect_equal("K5 rows", lanes, K.windowed_lanes_plain(k5_pts, k5_dig))
+    lanes_enc = K.compress(lanes).cpu().numpy()
+    for i in list(range(40)) + [n5 - 1]:
+        ref = IDENTITY if 24 <= i < 32 else multiscalar_mul([lane_scal[i]], [pool_pts[lane_pick[i]]])
+        if bytes(lanes_enc[i]) != ref.compress():
+            raise AssertionError(f"K5 lane {i} disagrees with pyref")
+
+    # K7 on 512 lanes: the same points, scalars with bits 253-255 set among
+    # them (ignored), all-ones and zero
+    n7 = 512
+    daa_scal = lane_scal[:n7]
+    daa_scal[32], daa_scal[33], daa_scal[34] = (1 << 253) + 12345, (1 << 256) - 1, (1 << 253) - 1
+    k7_bits = torch.from_numpy(K.pack_bits(daa_scal).view(np.int32)).to(device)
+    raw = np.frombuffer(b"".join(x.to_bytes(32, "little") for x in daa_scal), np.uint8).reshape(n7, 32).copy()
+    if not torch.equal(K.pack_bits_torch(torch.from_numpy(raw).to(device)), k7_bits):
+        raise AssertionError("K7: the device form of pack_bits disagrees with the host's")
+    k7_pts = k5_pts[:n7].contiguous()
+    daa = K.daa_lanes(k7_pts, k7_bits)
+    errs["daa_lanes"] = expect_equal("K7 rows", daa, K.daa_lanes_plain(k7_pts, k7_bits))
+    daa_enc = K.compress(daa).cpu().numpy()
+    for i in range(40):
+        ref = IDENTITY if 24 <= i < 32 else multiscalar_mul([daa_scal[i] & ((1 << 253) - 1)], [pool_pts[lane_pick[i]]])
+        if bytes(daa_enc[i]) != ref.compress():
+            raise AssertionError(f"K7 lane {i} disagrees with pyref")
     torch.cuda.synchronize()
     return errs
 
@@ -278,7 +346,7 @@ def build_block(n_txs: int):
 
 class Recorder:
     """Wraps a kernel wrapper for one run: passes every call through and
-    keeps (clones of) the inputs of the call with the largest first input."""
+    keeps (clones of) the inputs of the call with the most work items."""
 
     def __init__(self, module, name):
         self.module, self.name = module, name
@@ -287,7 +355,8 @@ class Recorder:
         self.size = -1
 
     def __call__(self, *args):
-        size = args[0].shape[1] if self.name == "windowed_lanes_k8" else args[0].shape[0]
+        packed = self.name in ("windowed_lanes_k8", "windowed_lanes_k8_fe15")
+        size = args[0].shape[1] if packed else args[0].shape[0]
         if size > self.size:
             self.size = size
             self.args = tuple(a.clone() if hasattr(a, "clone") else a for a in args)
@@ -301,13 +370,63 @@ class Recorder:
         setattr(self.module, self.name, self.fn)
 
 
-def main_path(args, accel):
+def counted(fn, record=()):
+    """Run ``fn`` once with the launch counts set to 0 just before and read
+    just after, the inputs of the kernels named in ``record`` kept, and
+    synchronising CUDA calls counted.  Returns (fn's result, launches,
+    number of synchronising calls, {name: Recorder})."""
     import torch
 
+    from xelis_he_tpu_torch.ops import kernels as K
+
+    recorders = {name: Recorder(K, name) for name in record}
+    for r in recorders.values():
+        r.__enter__()
+    try:
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            K.reset_launches()
+            try:
+                out = fn()
+            finally:
+                launches = dict(K.launches)
+                torch.cuda.set_sync_debug_mode("default")
+    finally:
+        for r in recorders.values():
+            r.__exit__()
+    syncs = [w for w in seen if "called a synchronizing CUDA operation" in str(w.message)]
+    return out, launches, len(syncs), recorders
+
+
+def expect_launched(what: str, launches: dict, used, unused=()) -> None:
+    log(f"  {what}: launches {launches}")
+    missing = [k for k in used if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"{what}: kernels not launched: {missing}")
+    stray = [k for k in unused if launches[k]]
+    if stray:
+        raise AssertionError(f"{what}: kernels launched that this path must not run: {stray}")
+
+
+def no_host_path_blocks() -> None:
+    from xelis_he_tpu_torch.metrics import metrics
+
+    n = metrics.snapshot()["counters"].get("verify_batch.host_path_blocks", 0)
+    if n:
+        raise AssertionError(f"verify_batch.host_path_blocks = {n}: a block left the device path")
+
+
+def ledger_balances(ledger) -> dict:
+    """Every balance as compressed bytes, with each account's nonce."""
+    return {pk.data: ({a.data: ct.compress().data for a, ct in acc.balances.items()}, acc.nonce)
+            for pk, acc in ledger.accounts.items()}
+
+
+def main_path(args, accel):
     from xelis_he_tpu_torch import NATIVE_ASSET, ProofVerificationError, verify_batch
     from xelis_he_tpu_torch.bulletproofs.range_proof import RangeProof
     from xelis_he_tpu_torch.metrics import metrics
-    from xelis_he_tpu_torch.ops import kernels as K
     from xelis_he_tpu_torch.pyref.ristretto import mul_base
 
     t0 = time.perf_counter()
@@ -323,42 +442,23 @@ def main_path(args, accel):
     # the counted run: launch counts, synchronising calls, balance
     state = ledger.clone()
     metrics.reset()
-    recorders = [Recorder(K, name) for name in KERNELS]
-    for r in recorders:
-        r.__enter__()
-    K.reset_launches()
-    try:
-        with warnings.catch_warnings(record=True) as seen:
-            warnings.simplefilter("always")
-            torch.cuda.set_sync_debug_mode("warn")
-            try:
-                verify_batch(txs, state, accel=accel)
-            finally:
-                torch.cuda.set_sync_debug_mode("default")
-        launches = dict(K.launches)
-    finally:
-        for r in recorders:
-            r.__exit__()
-    syncs = [w for w in seen if "called a synchronizing CUDA operation" in str(w.message)]
-    log(f"  counted verify: launches {launches}")
-    log(f"  synchronising calls seen: {len(syncs)} (the block's one result pull is expected)")
-    snap = metrics.snapshot()
-    host_blocks = snap["counters"].get("verify_batch.host_path_blocks", 0)
-    if host_blocks:
-        raise AssertionError(f"verify_batch.host_path_blocks = {host_blocks}: the block left the device path")
-    missing = [k for k, v in launches.items() if v == 0]
-    if missing:
-        raise AssertionError(f"kernels not launched on the main path: {missing}")
+    _, launches, syncs, recorders = counted(lambda: verify_batch(txs, state, accel=accel), DEFAULT_PATH)
+    expect_launched("counted verify", launches, DEFAULT_PATH,
+                    ("windowed_lanes", "windowed_lanes_k8_fe15", "daa_lanes"))
+    log(f"  synchronising calls seen: {syncs} (the block's one result pull is expected)")
+    if syncs != 1:
+        raise AssertionError(f"the default verify made {syncs} synchronising calls, not 1")
+    no_host_path_blocks()
     if state.get_bal_decrypted(pk_r, NATIVE_ASSET) != mul_base(10 * len(txs)):
         raise AssertionError("receiver balance is wrong after the verified block")
     log(f"  receiver balance = {10 * len(txs)} (decrypted and checked)")
 
     times = []
     for it in range(args.iters):
-        state = ledger.clone()
+        timed_state = ledger.clone()
         metrics.reset()
         t0 = time.perf_counter()
-        verify_batch(txs, state, accel=accel)
+        verify_batch(txs, timed_state, accel=accel)
         times.append(time.perf_counter() - t0)
         log(f"  iter {it}: {times[-1] * 1e3:.1f} ms, {times[-1] * 1e3 / len(txs):.4f} ms/tx")
     times.sort()
@@ -388,7 +488,218 @@ def main_path(args, accel):
             log(f"  tampered {name}: rejected ({e})")
         else:
             raise AssertionError(f"tampered {name} was accepted")
-    return launches, per_tx, recorders, (txs, ledger)
+    return launches, per_tx, recorders, (txs, ledger), ledger_balances(state)
+
+
+# ---------------------------------------------------------------------------
+# phases 6-9: this slice's paths
+# ---------------------------------------------------------------------------
+
+
+def switch_paths(txs, ledger, want_balances):
+    """Phase 6: the block through K5 (quad lanes off) and through K6 (the tier
+    switch off).  Returns ({kernel: launches}, {kernel: Recorder})."""
+    from xelis_he_tpu_torch import verify_batch
+    from xelis_he_tpu_torch.metrics import metrics
+    from xelis_he_tpu_torch.ops.accel import Accelerator
+
+    launches, recorders = {}, {}
+    for what, kwargs, name in (("quad lanes off", {"quad_lanes": False}, "windowed_lanes"),
+                               ("tier switch off", {"fe15": True}, "windowed_lanes_k8_fe15")):
+        accel = Accelerator(**kwargs)
+        verify_batch(txs, ledger.clone(), accel=accel)  # warm-up
+        state = ledger.clone()
+        metrics.reset()
+        t0 = time.perf_counter()
+        _, seen, syncs, recs = counted(lambda: verify_batch(txs, state, accel=accel), (name,))
+        ms = (time.perf_counter() - t0) * 1e3
+        used = ("decompress", name, "tile_sums", "compress")
+        expect_launched(f"verify, {what}", seen, used, [k for k in seen if k not in used])
+        log(f"  verify, {what}: {ms:.1f} ms, {ms / len(txs):.4f} ms/tx, synchronising calls {syncs}")
+        if syncs != 1:
+            raise AssertionError(f"verify, {what}: {syncs} synchronising calls, not 1")
+        no_host_path_blocks()
+        if ledger_balances(state) != want_balances:
+            raise AssertionError(f"verify, {what}: balances differ from the default verify's")
+        log(f"  verify, {what}: accepted, balances equal to the default verify's")
+        launches[name], recorders[name] = seen[name], recs[name]
+    return launches, recorders
+
+
+def generic_msm(rng: random.Random, txs, ledger, accel):
+    """Phase 7.  Returns (K7's launches, its Recorder)."""
+    import torch
+
+    from xelis_he_tpu_torch import verify
+    from xelis_he_tpu_torch.ops.curve import Curve
+    from xelis_he_tpu_torch.ops.fe import Field
+    from xelis_he_tpu_torch.ops.msm import MsmEngine, decompose_bits
+    from xelis_he_tpu_torch.pyref.ristretto import multiscalar_mul
+
+    # one transaction's MSMs, captured from a host verify
+    calls = []
+
+    def spy(scalars, points):
+        calls.append((list(scalars), list(points)))
+        return multiscalar_mul(scalars, points)
+
+    verify(txs[0], ledger.clone(), msm=spy)
+    sc, pts = max(calls, key=lambda c: len(c[0]))
+    log(f"  one transaction's range-proof MSM: {len(sc)} lanes (padded to {accel._lane_granule(len(sc))})")
+    (got, got_rand), launches, syncs, _ = counted(
+        lambda: (accel.msm(sc, pts), accel.msm([rng.randrange(L) for _ in sc], pts)))
+    expect_launched("accel.msm, K5 branch", launches, ("windowed_lanes", "tile_sums"),
+                    ("windowed_lanes_k8", "windowed_lanes_k8_fe15"))
+    if not got.is_identity() or got != multiscalar_mul(sc, pts):
+        raise AssertionError("accel.msm disagrees with pyref on the range-proof lanes")
+    rng_scal = [rng.randrange(L) for _ in sc]
+    if accel.msm(rng_scal, pts) != multiscalar_mul(rng_scal, pts) or got_rand.is_identity():
+        raise AssertionError("accel.msm disagrees with pyref on random scalars")
+    if syncs != 2:
+        raise AssertionError(f"two accel.msm calls made {syncs} synchronising calls, not one each")
+    if not bool(accel.msm_check(sc, pts)) or bool(accel.msm_check(rng_scal, pts)):
+        raise AssertionError("accel.msm_check is wrong on the range-proof lanes")
+
+    # a lane count that fills packed tiles: 4,000 points -> 4,096 lanes, K2
+    from xelis_he_tpu_torch.ops.kernels import K_PACK
+    from xelis_he_tpu_torch.tx.verify import _collect_compressed
+
+    n_big = K_PACK * accel.tile - 96
+    encs = _collect_compressed(txs[:200])
+    encs = (encs * (n_big // len(encs) + 1))[:n_big]
+    t0 = time.perf_counter()
+    big_pts, valid = accel.decompress_many(encs)
+    if not all(valid):
+        raise AssertionError("decompress_many rejected an encoding of the block")
+    big_sc = [rng.randrange(L) for _ in encs]
+    got, launches, _, _ = counted(lambda: accel.msm(big_sc, big_pts))
+    expect_launched(f"accel.msm, {len(encs)} points", launches, ("windowed_lanes_k8", "tile_sums"),
+                    ("windowed_lanes", "windowed_lanes_k8_fe15"))
+    if got != multiscalar_mul(big_sc, big_pts):
+        raise AssertionError("accel.msm disagrees with pyref on the packed branch")
+    log(f"  accel.msm on {len(encs)} points agrees with pyref ({time.perf_counter() - t0:.1f} s with the host reference)")
+    # what the host pays to turn big-int points into limb rows, beside the whole call
+    t0 = time.perf_counter()
+    accel._to_device_points(big_pts, accel._lane_granule(len(big_pts)))
+    torch.cuda.synchronize()
+    rows_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    accel.msm(big_sc, big_pts)
+    log(f"  accel.msm on {len(encs)} points: {(time.perf_counter() - t0) * 1e3:.1f} ms, of which "
+        f"_to_device_points (big ints -> limb rows -> upload) {rows_ms:.1f} ms")
+
+    # single transactions, as a node checks them on arrival
+    # (every MSM goes to the card, the 19-point sigma check too; the host
+    # figure beside it is the same 64 verifies with pyref's MSM)
+    sizes = []
+
+    def card_msm(scalars, points):
+        sizes.append(len(scalars))
+        return accel.msm(scalars, points)
+
+    t0 = time.perf_counter()
+    state = ledger.clone()
+    _, launches, _, _ = counted(lambda: [verify(tx, state, msm=card_msm) for tx in txs[:64]])
+    card_ms = (time.perf_counter() - t0) * 1e3 / 64
+    expect_launched("verify(tx, state, msm=accel.msm) x 64", launches, ("windowed_lanes", "tile_sums"))
+    if launches["windowed_lanes"] != len(sizes):
+        raise AssertionError(f"{len(sizes)} MSMs of the single-transaction verifies made "
+                             f"{launches['windowed_lanes']} K5 launches: some ran elsewhere")
+    t0 = time.perf_counter()
+    state = ledger.clone()
+    for tx in txs[:64]:
+        verify(tx, state)
+    host_ms = (time.perf_counter() - t0) * 1e3 / 64
+    log(f"  64 single-transaction verifies: {card_ms:.2f} ms each with accel.msm "
+        f"({len(sizes) // 64} MSMs a transaction, of {sorted(set(sizes))} points, one K5 launch and one "
+        f"pull each), {host_ms:.2f} ms each with the host's MSM")
+
+    # the double-and-add engine at 512 lanes: K7, then K3
+    curve = Curve(Field(accel.device))
+    engine = MsmEngine(curve)
+    daa_pts, daa_sc = big_pts[:512], big_sc[:512]
+    batch = curve.from_points(daa_pts)
+    bits = torch.from_numpy(decompose_bits(daa_sc).astype("int64")).to(accel.device)
+    res, launches, _, recs = counted(lambda: engine.msm_daa(batch, bits), ("daa_lanes",))
+    expect_launched("MsmEngine.msm_daa, 512 lanes", launches, ("daa_lanes", "tile_sums"))
+    if curve.to_points(tuple(c[None] for c in res))[0] != multiscalar_mul(daa_sc, daa_pts):
+        raise AssertionError("MsmEngine.msm_daa disagrees with pyref")
+    log("  MsmEngine.msm_daa on 512 lanes agrees with pyref")
+    return launches["daa_lanes"], recs["daa_lanes"]
+
+
+def signatures_and_conversions(txs, accel) -> None:
+    """Phase 8."""
+    import numpy as np
+
+    from xelis_he_tpu_torch.elgamal import Signature
+    from xelis_he_tpu_torch.tx.verify import _collect_compressed
+
+    entries = []
+    for tx in txs:
+        entries.append((tx.signature, tx.source.data, tx.source, tx.to_bytes()[0]))
+    bad_at = len(entries) // 3
+    sig = entries[bad_at][0]
+    entries[bad_at] = (Signature(sig.s + 1, sig.e), *entries[bad_at][1:])
+    t0 = time.perf_counter()
+    ok, launches, syncs, _ = counted(lambda: accel.verify_signatures(entries))
+    expect_launched(f"verify_signatures x {len(entries)}", launches, ("windowed_lanes_k8", "compress"))
+    if ok != [i != bad_at for i in range(len(entries))]:
+        raise AssertionError("verify_signatures: wrong verdicts")
+    if syncs != 1:
+        raise AssertionError(f"verify_signatures made {syncs} synchronising calls, not 1")
+    log(f"  verify_signatures: {len(entries)} signatures, the bad one found, "
+        f"{(time.perf_counter() - t0) * 1e3:.1f} ms, one synchronising call")
+
+    encs = _collect_compressed(txs)
+    t0 = time.perf_counter()
+    (rows, valid), launches, syncs, _ = counted(lambda: accel.decompress_many_lazy(encs))
+    expect_launched(f"decompress_many_lazy x {len(encs)}", launches, ("decompress",))
+    if not all(valid) or rows.shape != (len(encs), 4, 18) or syncs != 1:
+        raise AssertionError("decompress_many_lazy: wrong flags, shape or sync count")
+    log(f"  decompress_many_lazy: {len(encs)} encodings in {(time.perf_counter() - t0) * 1e3:.1f} ms, one pull")
+    part = encs[:20_000]
+    t0 = time.perf_counter()
+    pts, valid = accel.decompress_many(part)
+    back, launches, syncs, _ = counted(lambda: accel.compress_many(pts))
+    expect_launched(f"compress_many x {len(part)}", launches, ("compress",))
+    if back != part or not all(valid) or syncs != 1:
+        raise AssertionError("compress_many(decompress_many(encodings)) is not the encodings")
+    if not np.array_equal(accel._points_to_rows(pts[:64]), rows[:64]):
+        raise AssertionError("decompress_many and decompress_many_lazy disagree")
+    log(f"  decompress_many -> compress_many round trip on {len(part)} encodings: "
+        f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
+
+
+def python_path(txs, ledger, accel, n_txs: int = 2000) -> None:
+    """Phase 9: a block the native engine is told not to take."""
+    from xelis_he_tpu_torch import NATIVE_ASSET, verify_batch
+    from xelis_he_tpu_torch.metrics import metrics
+    from xelis_he_tpu_torch.pyref.ristretto import mul_base
+
+    part = txs[:n_txs]
+    pk_r = part[0].data[0].dest_pubkey
+    os.environ["XELIS_NATIVE_PREVERIFY"] = "0"
+    try:
+        state = ledger.clone()
+        metrics.reset()
+        t0 = time.perf_counter()
+        _, launches, syncs, _ = counted(lambda: verify_batch(part, state, accel=accel))
+        ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        del os.environ["XELIS_NATIVE_PREVERIFY"]
+    expect_launched(f"Python block path, {len(part)} txs", launches, DEFAULT_PATH)
+    snap = metrics.snapshot()
+    if "verify_batch.collect" in snap["span_counts"] or "verify_batch.pre_verify" not in snap["span_counts"]:
+        raise AssertionError("the block did not go through the Python block path")
+    no_host_path_blocks()
+    if syncs != 1:
+        raise AssertionError(f"the Python block path made {syncs} synchronising calls, not 1")
+    if state.get_bal_decrypted(pk_r, NATIVE_ASSET) != mul_base(10 * len(part)):
+        raise AssertionError("receiver balance is wrong after the Python block path")
+    log(f"  accepted in {ms:.1f} ms, {ms / len(part):.4f} ms/tx, one synchronising call, "
+        f"receiver balance = {10 * len(part)}")
+    log(f"  metrics: {metrics.json_line()}")
 
 
 def trace_verify(txs, ledger, accel) -> dict:
@@ -426,22 +737,25 @@ def trace_verify(txs, ledger, accel) -> dict:
 # ---------------------------------------------------------------------------
 
 
+def set_bits_253(words) -> int:
+    """Set bits among bits 0-252 of K7's (8, N) int32 bit words."""
+    import torch
+
+    w = words.to(torch.int64) & 0xFFFFFFFF
+    w[7] &= (1 << 29) - 1
+    return int(sum(((w >> k) & 1).sum() for k in range(32)))
+
+
 def kernel_line(recorders, launches, errs, clock_hz):
     import torch
 
     from xelis_he_tpu_torch.ops import kernels as K
 
-    plain = {
-        "decompress": K.decompress_plain,
-        "windowed_lanes_k8": K.windowed_lanes_k8_plain,
-        "tile_sums": K.tile_sums_plain,
-        "compress": K.compress_plain,
-    }
     rows = []
-    for r in recorders:
-        name, args = r.name, r.args
-        kernel = getattr(K, name)
-        out_k, out_p = kernel(*args), plain[name](*args)
+    for name in KERNELS:
+        args = recorders[name].args
+        kernel, plain = getattr(K, name), getattr(K, name + "_plain")
+        out_k, out_p = kernel(*args), plain(*args)
         if isinstance(out_k, tuple):
             res = worst(*(expect_equal(f"{name} (main-path shape) {i}", a, b)
                           for i, (a, b) in enumerate(zip(out_k, out_p))))
@@ -449,21 +763,29 @@ def kernel_line(recorders, launches, errs, clock_hz):
             res = expect_equal(f"{name} (main-path shape)", out_k, out_p)
         n_bad, err = worst(res, errs[name])
         ms = time_ms(lambda: kernel(*args))
-        plain_ms = time_ms(lambda: plain[name](*args), reps=3)  # seconds each at these shapes
+        plain_ms = time_ms(lambda: plain(*args), reps=3)  # seconds each at these shapes
+        set_bits = 0
         if name == "decompress":
             n = args[0].shape[0]
             items, nbytes, shape = n, n * (32 + 288 + 1), f"{n} encodings"
-        elif name == "windowed_lanes_k8":
-            s = args[0].shape[1]
-            items, nbytes, shape = s, s * (8 * 288 + 8 * 64 + 288), f"{s} slots"
+        elif name in ("windowed_lanes_k8", "windowed_lanes_k8_fe15"):
+            n = args[0].shape[1]
+            items, nbytes, shape = n, n * (8 * 288 + 8 * 64 + 288), f"{n} slots"
         elif name == "tile_sums":
             n, tile = args[0].shape[0], args[1]
             items, nbytes = n - n // tile, (n + n // tile) * 288
             shape = f"{n} rows, tile {tile}"
+        elif name == "windowed_lanes":
+            n = args[0].shape[0]
+            items, nbytes, shape = n, n * (288 + 64 + 288), f"{n} lanes"
+        elif name == "daa_lanes":
+            n = args[0].shape[0]
+            set_bits = set_bits_253(args[1])
+            items, nbytes, shape = n, n * (288 + 32 + 288), f"{n} lanes, {set_bits} set bits"
         else:
             n = args[0].shape[0]
             items, nbytes, shape = n, n * (288 + 32), f"{n} points"
-        ops_ms = K.muladds(name, items) / (INT32_LANES * clock_hz) * 1e3
+        ops_ms = K.muladds(name, items, set_bits) / (INT32_LANES * clock_hz) * 1e3
         bytes_ms = nbytes / MEM_BYTES_PER_S * 1e3
         source, replaces = KERNELS[name]
         rows.append({
@@ -512,9 +834,21 @@ def main() -> int:
     errs = check_kernels(random.Random(args.seed), device)
 
     accel = Accelerator()
-    launches, per_tx, recorders, block = main_path(args, accel)
+    launches, per_tx, recorders, block, balances = main_path(args, accel)
+    launches = {k: launches[k] for k in DEFAULT_PATH}
 
-    log("kernel times at the main path's largest launch:")
+    log("the lane-kernel switches on the same block:")
+    seen, recs = switch_paths(*block, balances)
+    launches.update(seen)
+    recorders.update(recs)
+    log("generic MSM:")
+    launches["daa_lanes"], recorders["daa_lanes"] = generic_msm(random.Random(args.seed + 1), *block, accel)
+    log("signatures and conversions:")
+    signatures_and_conversions(block[0], accel)
+    log("the Python block path (XELIS_NATIVE_PREVERIFY=0):")
+    python_path(*block, accel)
+
+    log("kernel times at each kernel's largest launch on its path:")
     rows = kernel_line(recorders, launches, errs, clock_hz)
     log("trace of one verify:")
     trace = trace_verify(*block, accel)

@@ -6,9 +6,11 @@ proofs, the transaction model) imports no JAX, so the port keeps a
 byte-identical copy of it, with the package name changed and citations of
 the reference crate written as ``xelis-he/<path>``.  Only two edits are
 deliberate: the port's cache root (utils/cachedir.py) and ECDLP decoding,
-which is not ported yet (elgamal.py).  The port's tx/verify.py is rebuilt,
-not copied; beside the torch device glue it drops the JAX device pump and
-the small-block host crossover."""
+which is not ported yet (elgamal.py).  The modules of ``PORTED`` are rebuilt
+on torch, not copied: ops/msm.py keeps the double-and-add half of the engine
+(the Pippenger half waits), and tx/verify.py, beside the torch device glue,
+drops the JAX device pump, the small-block host crossover and the fused block
+check without the fold library (it raises, naming its ROADMAP item)."""
 
 import ast
 import pathlib

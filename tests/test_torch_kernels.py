@@ -1,13 +1,14 @@
-"""The plain versions of the port's four kernels (xelis_he_tpu_torch.ops.kernels)
+"""The plain versions of the port's seven kernels (xelis_he_tpu_torch.ops.kernels)
 against the JAX package, on identical numpy inputs, and the CUDA kernels'
 shared arithmetic (csrc/ed25519.cuh) built for the host with g++.
 
 The JAX references are the plain ones, not the Pallas kernels in interpret
-mode (minutes per call on a CPU): ``jax_curve()`` for K1/K4, the 13-bit
-helpers of ``pallas_msm`` composed as ``_windowed_kernel_k4_fe13`` composes
-them for K2 (they take their array module as an argument; numpy runs them
-without a compile), ``msm._tree_reduce`` for K3, and pyref throughout.  The
-CUDA kernels themselves run only on the card (chip_smoke.py)."""
+mode (minutes per call on a CPU): ``jax_curve()`` for K1/K4, the transposed
+helpers of ``pallas_msm`` composed as each kernel composes them for K2 (the
+13-bit tier), K5, K6 and K7 (the 15-bit tier; they take their array module as
+an argument, so numpy runs them without a compile), ``msm._tree_reduce`` for
+K3, and pyref throughout.  Every comparison is exact.  The CUDA kernels
+themselves run only on the card (chip_smoke.py)."""
 
 import ctypes
 import shutil
@@ -18,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_carry import plain_calls
 from xelis_he_tpu.ops import pallas_msm as pm
 from xelis_he_tpu.ops.curve import jax_curve, numpy_curve
 from xelis_he_tpu.ops.fe import numpy_field
@@ -203,6 +205,169 @@ def test_recode_signed4_matches_pallas_msm():
     assert np.array_equal(pm.recode_signed4_xp(raw, np), want)
 
 
+# -- K5, K6, K7: the 15-bit tier's helpers, composed as the kernels compose them --
+
+
+def _consts15():
+    c = pm._consts_array()
+    return c[0:18], c[18:36], c[36:54]
+
+
+def _cols(rows):
+    """(n, 4, 18) rows -> the transposed (X, Y, Z, T), each (18, n) uint32."""
+    return tuple(np.ascontiguousarray(rows[:, c, :].T).astype(np.uint32) for c in range(4))
+
+
+def _table_1_to_8(t1, consts):
+    t2 = pm._point_double_t(t1, np, consts)
+    t3 = pm._point_add_t(t2, t1, np, consts)
+    t4 = pm._point_double_t(t2, np, consts)
+    t5 = pm._point_add_t(t4, t1, np, consts)
+    t6 = pm._point_double_t(t3, np, consts)
+    t7 = pm._point_add_t(t6, t1, np, consts)
+    t8 = pm._point_double_t(t4, np, consts)
+    return (t1, t2, t3, t4, t5, t6, t7, t8)
+
+
+def _four_doublings(acc, consts):
+    for want_t in (False, False, False, True):
+        acc = pm._point_double_t(acc, np, consts, want_t=want_t)
+    return acc
+
+
+def _signed_digit(row):
+    val = row[None, :].astype(np.int32) - 8
+    return (val < 0).astype(np.uint32), np.abs(val).astype(np.uint32)
+
+
+def _windowed_kernel_lanes(rows, digits):
+    """_windowed_kernel's algebra on numpy -> canonical (N, 4, 18) rows."""
+    consts = _consts15()
+    table = _table_1_to_8(_cols(rows), consts)
+    ident = pm._identity_cols(rows.shape[0], np)
+    acc = ident
+    for w in range(pm.N_WINDOWS - 1, -1, -1):
+        acc = _four_doublings(acc, consts)
+        neg, k_abs = _signed_digit(digits[w])
+        sel = ident
+        for idx, entry in enumerate(table):
+            sel = pm._point_select_t(k_abs == idx + 1, entry, sel, np)
+        sx, sy, sz, st = sel
+        sel = (pm._select_t(neg, pm._neg_t(sx, np, consts), sx, np), sy, sz,
+               pm._select_t(neg, pm._neg_t(st, np, consts), st, np))
+        acc = pm._point_add_t(acc, sel, np, consts)
+    return _canon_rows(tuple(c.T for c in acc))
+
+
+def _windowed_kernel_k4_slots(rows, digits):
+    """_windowed_kernel_k4's algebra on numpy (the 18x15-bit tier of the packed
+    lanes) -> canonical (S, 4, 18) rows."""
+    S = rows.shape[1]
+    consts = _consts15()
+    tables = [[pm._to_niels_t(t, np, consts) for t in _table_1_to_8(_cols(rows[k]), consts)]
+              for k in range(K.K_PACK)]
+    acc = pm._identity_cols(S, np)
+    ident_n = pm._identity_niels_cols(S, np)
+    for w in range(pm.N_WINDOWS - 1, -1, -1):
+        acc = _four_doublings(acc, consts)
+        for k in range(K.K_PACK):
+            neg, k_abs = _signed_digit(digits[k, w])
+            sel = ident_n
+            for idx, entry in enumerate(tables[k]):
+                sel = pm._point_select_t(k_abs == idx + 1, entry, sel, np)
+            ypx, ymx, t2d, z2 = sel
+            sel = (pm._select_t(neg, ymx, ypx, np), pm._select_t(neg, ypx, ymx, np),
+                   pm._select_t(neg, pm._neg_t(t2d, np, consts), t2d, np), z2)
+            acc = pm._point_add_niels_t(acc, sel, np, consts)
+    return _canon_rows(tuple(c.T for c in acc))
+
+
+def _daa_kernel_lanes(rows, words):
+    """_daa_kernel's algebra on numpy -> canonical (N, 4, 18) rows."""
+    consts = _consts15()
+    acc, base = pm._identity_cols(rows.shape[0], np), _cols(rows)
+    for word in range(pm.N_WORDS):
+        row = words[word : word + 1]
+        for k in range(min(32, pm.N_BITS - 32 * word)):
+            bit = (row >> np.uint32(k)) & np.uint32(1)
+            acc = pm._point_select_t(bit, pm._point_add_t(acc, base, np, consts), acc, np)
+            base = pm._point_double_t(base, np, consts)
+    return _canon_rows(tuple(c.T for c in acc))
+
+
+def _lane_inputs():
+    """24 lanes: the edge scalars, 0, 1 and L - 1 among them, a lane holding
+    the identity, host points with Z != 1."""
+    n = 24
+    pts = [mul_base(s) for s in _rand_scalars(n)]
+    scal = EDGE_SCALARS + _rand_scalars(n - len(EDGE_SCALARS))
+    pts[9] = IDENTITY
+    pts[10] = pts[11]  # a lane adding a point to itself on the way
+    scal[10] = 3
+    return pts, scal, _rows(pts)
+
+
+LANE_PTS, LANE_SCAL, LANE_ROWS = _lane_inputs()
+LANE_DIGITS = pm.recode_signed4(LANE_SCAL).astype(np.uint8)
+# K7 also takes scalars with bits 253-255 set, and ignores those bits
+DAA_SCAL = LANE_SCAL[:-2] + [(1 << 253) + 0x1234567, (1 << 256) - 1]
+DAA_WORDS = pm.pack_bits(DAA_SCAL)
+
+
+def _lane_encodings(scal, mask=None):
+    return [multiscalar_mul([s if mask is None else s & mask], [p]).compress() for s, p in zip(scal, LANE_PTS)]
+
+
+@pytest.fixture(scope="module")
+def k5_reference():
+    return _windowed_kernel_lanes(LANE_ROWS, LANE_DIGITS)
+
+
+@pytest.fixture(scope="module")
+def k6_reference():
+    return _windowed_kernel_k4_slots(K2_ROWS, K2_DIGITS)
+
+
+@pytest.fixture(scope="module")
+def k7_reference():
+    return _daa_kernel_lanes(LANE_ROWS, DAA_WORDS)
+
+
+def test_windowed_lane_plain_matches_pallas_helpers_and_pyref(k5_reference):
+    with plain_calls() as calls:
+        out = K.windowed_lanes(torch.from_numpy(LANE_ROWS.view(np.int32)), torch.from_numpy(LANE_DIGITS))
+    assert calls["windowed_lanes"] == 1
+    assert np.array_equal(out.numpy(), k5_reference)
+    assert [bytes(r) for r in K.compress(out).numpy()] == _lane_encodings(LANE_SCAL)
+
+
+def test_windowed_lanes_fe15_plain_matches_pallas_helpers_k2_and_pyref(k6_reference, fe13_reference):
+    pts, dig = torch.from_numpy(K2_ROWS.view(np.int32)), torch.from_numpy(K2_DIGITS)
+    out = K.windowed_lanes_k8_fe15(pts, dig)
+    assert np.array_equal(out.numpy(), k6_reference)
+    # K6 against K2 on the edge scalars: equal slot sums, on both sides
+    assert np.array_equal(out.numpy(), K.windowed_lanes_k8(pts, dig).numpy())
+    assert np.array_equal(k6_reference, fe13_reference)
+    assert [bytes(r) for r in K.compress(out).numpy()] == _pyref_slots()
+
+
+def test_daa_lanes_plain_matches_pallas_helpers_and_pyref(k7_reference):
+    words = torch.from_numpy(DAA_WORDS.view(np.int32))
+    out = K.daa_lanes(torch.from_numpy(LANE_ROWS.view(np.int32)), words)
+    assert np.array_equal(out.numpy(), k7_reference)
+    assert [bytes(r) for r in K.compress(out).numpy()] == _lane_encodings(DAA_SCAL, (1 << 253) - 1)
+
+
+def test_pack_bits_matches_pallas_msm():
+    want = pm.pack_bits(DAA_SCAL)
+    assert np.array_equal(K.pack_bits(DAA_SCAL), want)
+    raw = np.frombuffer(b"".join(s.to_bytes(32, "little") for s in DAA_SCAL), np.uint8).reshape(-1, 32)
+    assert np.array_equal(K.pack_bits(raw), want)
+    got = K.pack_bits_torch(torch.from_numpy(raw.copy()))
+    assert got.dtype == torch.int32 and got.is_contiguous()
+    assert np.array_equal(got.numpy().view(np.uint32), want)
+
+
 # -- K3 -----------------------------------------------------------------------
 
 
@@ -238,7 +403,15 @@ def test_wrappers_check_shapes_and_devices():
         K.tile_sums(torch.zeros((12, 4, 18), dtype=torch.int32), 8)
     with pytest.raises(ValueError):
         K.compress(torch.zeros((4, 4, 18), dtype=torch.int64))
-    assert K.launches == {"decompress": 0, "windowed_lanes_k8": 0, "tile_sums": 0, "compress": 0}
+    with pytest.raises(ValueError):
+        K.windowed_lanes(torch.zeros((4, 4, 18), dtype=torch.int32), torch.zeros((64, 5), dtype=torch.uint8))
+    with pytest.raises(ValueError):
+        K.daa_lanes(torch.zeros((4, 4, 18), dtype=torch.int32), torch.zeros((8, 4), dtype=torch.uint8))
+    with pytest.raises(ValueError):
+        K.windowed_lanes_k8_fe15(torch.zeros((8, 4, 4, 18), dtype=torch.int32),
+                                 torch.zeros((8, 64, 4), dtype=torch.int32))
+    assert K.launches == {"decompress": 0, "windowed_lanes_k8": 0, "tile_sums": 0, "compress": 0,
+                          "windowed_lanes": 0, "windowed_lanes_k8_fe15": 0, "daa_lanes": 0}
 
 
 # -- csrc/ed25519.cuh built for the host ----------------------------------------
@@ -254,7 +427,7 @@ def shim(tmp_path_factory):
     repo = pathlib.Path(__file__).resolve().parents[1]
     out = tmp_path_factory.mktemp("shim") / "libshim.so"
     subprocess.run(
-        ["g++", "-x", "c++", "-DXHE_HD=", "-DXHE_COUNT_MULS", "-O2", "-shared", "-fPIC",
+        ["g++", "-x", "c++", "-DXHE_HD=", "-DXHE_NOINLINE=", "-DXHE_COUNT_MULS", "-O2", "-shared", "-fPIC",
          "-I", str(repo / "xelis_he_tpu_torch" / "csrc"), "-o", str(out),
          str(repo / "tests" / "torch_ed25519_shim.cpp")],
         check=True, capture_output=True, timeout=300,
@@ -265,6 +438,10 @@ def shim(tmp_path_factory):
     lib.shim_compress.argtypes = [vp, vp, i]
     lib.shim_windowed_lanes_k8.argtypes = [vp, vp, vp, i]
     lib.shim_tile_sums.argtypes = [vp, vp, i, i]
+    lib.shim_windowed_lanes_k8_fe15.argtypes = [vp, vp, vp, i]
+    lib.shim_windowed_lanes.argtypes = [vp, vp, vp, i]
+    lib.shim_daa_lanes.argtypes = [vp, vp, vp, i]
+    lib.shim_fe15.argtypes = [vp, vp, vp, vp, vp, i]
     lib.shim_square.argtypes = [vp, vp, vp, i]
     lib.shim_mul_count.restype = ctypes.c_ulonglong
     lib.shim_sq_count.restype = ctypes.c_ulonglong
@@ -337,3 +514,65 @@ def test_cuh_tile_sums_matches_plain(shim):
     shim.shim_tile_sums(_ptr(rows), _ptr(out), n_tiles, tile)
     assert _counts(shim) == (K.FIELD_MULS["tile_sums"] * (tile - 1) * n_tiles, 0)
     assert np.array_equal(out, K.tile_sums(torch.from_numpy(rows), tile).numpy())
+
+
+def test_cuh_windowed_lane_matches_pallas_helpers_and_plain(shim, k5_reference):
+    n = LANE_ROWS.shape[0]
+    out = np.zeros((n, 4, 18), np.int32)
+    shim.shim_reset_mul_count()
+    shim.shim_windowed_lanes(_ptr(np.ascontiguousarray(LANE_ROWS.view(np.int32))), _ptr(LANE_DIGITS), _ptr(out), n)
+    assert _counts(shim) == (K.FIELD_MULS["windowed_lanes"] * n, K.FIELD_SQS["windowed_lanes"] * n)
+    assert np.array_equal(out, k5_reference)
+    enc = np.zeros((n, 32), np.uint8)
+    shim.shim_compress(_ptr(out), _ptr(enc), n)
+    assert [bytes(r) for r in enc] == _lane_encodings(LANE_SCAL)
+
+
+def test_cuh_windowed_lanes_fe15_matches_pallas_helpers_and_k2(shim, k6_reference):
+    pts = np.ascontiguousarray(K2_ROWS.view(np.int32))
+    out, out_k2 = np.zeros((S_SLOTS, 4, 18), np.int32), np.zeros((S_SLOTS, 4, 18), np.int32)
+    shim.shim_reset_mul_count()
+    shim.shim_windowed_lanes_k8_fe15(_ptr(pts), _ptr(K2_DIGITS), _ptr(out), S_SLOTS)
+    name = "windowed_lanes_k8_fe15"
+    assert _counts(shim) == (K.FIELD_MULS[name] * S_SLOTS, K.FIELD_SQS[name] * S_SLOTS)
+    assert np.array_equal(out, k6_reference)
+    shim.shim_windowed_lanes_k8(_ptr(pts), _ptr(K2_DIGITS), _ptr(out_k2), S_SLOTS)
+    assert np.array_equal(out, out_k2)  # two field tiers, one answer
+
+
+def test_cuh_daa_lanes_matches_pallas_helpers_and_plain(shim, k7_reference):
+    n = LANE_ROWS.shape[0]
+    out = np.zeros((n, 4, 18), np.int32)
+    shim.shim_reset_mul_count()
+    shim.shim_daa_lanes(_ptr(np.ascontiguousarray(LANE_ROWS.view(np.int32))),
+                        _ptr(np.ascontiguousarray(DAA_WORDS.view(np.int32))), _ptr(out), n)
+    set_bits = sum(bin(s & ((1 << 253) - 1)).count("1") for s in DAA_SCAL)
+    assert _counts(shim) == (K.FIELD_MULS["daa_lanes"] * n + K.DAA_MULS_PER_SET_BIT * set_bits,
+                             K.FIELD_SQS["daa_lanes"] * n)
+    assert np.array_equal(out, k7_reference)
+
+
+def test_cuh_fe15_tier_matches_pyref_field(shim):
+    """The 15-bit tier's mul, squaring and subtraction against big-int
+    arithmetic, on rows up to the boundary's bound (limbs < 2^17), p - 1, p,
+    0 and all-ones among them."""
+    rng = np.random.default_rng(15)
+    n = 512
+    f = rng.integers(0, 1 << 17, (n, 18), dtype=np.int64)
+    g = rng.integers(0, 1 << 15, (n, 18), dtype=np.int64)
+    f[0], g[0] = (1 << 17) - 1, (1 << 17) - 1
+    f[1], g[1] = NF.from_ints([P - 1])[0], NF.from_ints([P - 1])[0]
+    f[2], g[2] = NF.from_ints([P])[0], 0
+    f[3], g[3] = 0, NF.from_ints([1])[0]
+    f, g = np.ascontiguousarray(f.astype(np.int32)), np.ascontiguousarray(g.astype(np.int32))
+    outs = [np.zeros((n, 18), np.int32) for _ in range(3)]
+    shim.shim_fe15(_ptr(f), _ptr(g), *(_ptr(o) for o in outs), n)
+
+    def ints(rows):
+        return [sum(int(v) << (15 * k) for k, v in enumerate(r)) for r in rows]
+
+    fi, gi = ints(f), ints(g)
+    for got, want in zip(outs, ([a * b % P for a, b in zip(fi, gi)], [a * a % P for a in fi],
+                                [(a - b) % P for a, b in zip(fi, gi)])):
+        assert ints(got) == want  # canonical rows: the value itself, below p
+        assert got.max() < (1 << 15) and got.min() >= 0

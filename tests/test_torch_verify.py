@@ -5,7 +5,7 @@ Both must accept and leave the same balances."""
 import pytest
 import torch
 
-from torch_carry import balances, carry, transfer_block
+from torch_carry import balances, carry, plain_calls, transfer_block
 from xelis_he_tpu import verify_batch as jax_verify_batch
 from xelis_he_tpu.ops.accel import Accelerator as JaxAccelerator
 from xelis_he_tpu.tx.wire import encode_transaction
@@ -51,17 +51,24 @@ def test_block_verifies_like_jax(block, accel):
     assert K.launches == {k: 0 for k in K.launches}  # CPU tensors: plain versions only
 
 
-def test_declined_block_verifies_on_host(block, accel, monkeypatch, caplog):
-    """A block the native engine does not take is verified on the host (the
-    port has no Python fused path yet), counted and logged."""
+def test_declined_block_verifies_on_host(block, accel, monkeypatch):
+    """A block the native engine does not take no longer verifies on the
+    host: it goes through the Python block path (``_fused_deferred``) on the
+    accelerator it was given, with one pull, and counts no host-path block.
+    (tests/test_torch_verify_python_path.py holds that path to the JAX
+    package's.)"""
     txs, ledger, pk_r = block
     port_txs, port_ledger = carry(txs, ledger)
     monkeypatch.setenv("XELIS_NATIVE_PREVERIFY", "0")
     metrics.reset()
     state = port_ledger.clone()
-    verify_batch(port_txs, state, accel=accel)
-    assert metrics.snapshot()["counters"]["verify_batch.host_path_blocks"] == 1
-    assert "verifying on the host" in caplog.text
+    with plain_calls() as calls:
+        verify_batch(port_txs, state, accel=accel)
+    snap = metrics.snapshot()
+    assert "verify_batch.host_path_blocks" not in snap["counters"]
+    assert snap["span_counts"]["fused_check.pull"] == 1
+    assert "verify_batch.collect" not in snap["span_counts"]  # the native engine did not run
+    assert calls["decompress"] == 1 and calls["windowed_lanes_k8"] == 2
     assert state.get_bal_decrypted(CompressedPubkey(pk_r.data), NATIVE_ASSET) == mul_base(21)
 
 
@@ -73,8 +80,9 @@ def test_accelerator_needs_cuda_unless_told_cpu(monkeypatch):
         Accelerator(device="cuda")
     acc = Accelerator(device="cpu")
     assert (acc.backend, acc.mesh, acc.device.type) == ("torch", None, "cpu")
+    assert acc.msm([1], [mul_base(1)]) == mul_base(1)  # one point: the lane kernels' plain versions
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        acc.msm([1], [mul_base(1)])
+        acc.fused_block_begin(([], []), [])
 
 
 def test_rows_cross_as_int32_with_the_same_bits():

@@ -9,6 +9,7 @@ runs the kernels' plain versions.  One verify through the JAX package's
 numpy accelerator takes some 40 s on one CPU core, so each test file makes
 at most one of them."""
 
+import contextlib
 import copy
 
 import torch
@@ -24,6 +25,32 @@ from xelis_he_tpu_torch.carry import ledger_from_snapshot, txs_from_wire
 # pool gains nothing on them and, with one pool per test worker, starves the
 # other workers' cores.
 torch.set_num_threads(1)
+
+
+@contextlib.contextmanager
+def plain_calls():
+    """Counts, per kernel, the calls its wrapper makes to its plain version
+    while the block runs (the route of CPU tensors), so a test can show which
+    branch a call took.  Yields the dict of counts."""
+    from xelis_he_tpu_torch.ops import kernels as K
+
+    calls = {name: 0 for name in K.launches}
+    saved = {name: getattr(K, f"{name}_plain") for name in calls}
+
+    def counting(name):
+        def run(*args):
+            calls[name] += 1
+            return saved[name](*args)
+
+        return run
+
+    for name in calls:
+        setattr(K, f"{name}_plain", counting(name))
+    try:
+        yield calls
+    finally:
+        for name, fn in saved.items():
+            setattr(K, f"{name}_plain", fn)
 
 
 def snapshot(ledger: Ledger) -> dict:

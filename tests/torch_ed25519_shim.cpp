@@ -1,7 +1,7 @@
 // Host build of xelis_he_tpu_torch/csrc/ed25519.cuh for the CPU tests:
 // the kernels' per-thread bodies run here on plain loops, one item at a
 // time, so their arithmetic is checked without a GPU.
-//   g++ -x c++ -DXHE_HD= -DXHE_COUNT_MULS -O2 -shared -fPIC -I<csrc> this.cpp
+//   g++ -x c++ -DXHE_HD= -DXHE_NOINLINE= -DXHE_COUNT_MULS -O2 -shared -fPIC -I<csrc> this.cpp
 
 #include "ed25519.cuh"
 
@@ -18,7 +18,36 @@ void shim_compress(const int32_t *rows, uint8_t *out, int n) {
 }
 
 void shim_windowed_lanes_k8(const int32_t *pts, const uint8_t *digits, int32_t *out, int S) {
-  for (int s = 0; s < S; ++s) windowed_slot_k8(out + 72 * s, pts, digits, S, s);
+  for (int s = 0; s < S; ++s) windowed_slot_k8<fe>(out + 72 * s, pts, digits, S, s);
+}
+
+void shim_windowed_lanes_k8_fe15(const int32_t *pts, const uint8_t *digits, int32_t *out, int S) {
+  for (int s = 0; s < S; ++s) windowed_slot_k8<fe15>(out + 72 * s, pts, digits, S, s);
+}
+
+void shim_windowed_lanes(const int32_t *pts, const uint8_t *digits, int32_t *out, int N) {
+  for (int i = 0; i < N; ++i) windowed_lane(out + 72 * i, pts, digits, N, i);
+}
+
+void shim_daa_lanes(const int32_t *pts, const int32_t *bits, int32_t *out, int N) {
+  for (int i = 0; i < N; ++i) daa_lane(out + 72 * i, pts, bits, N, i);
+}
+
+// n field elements of 18 limbs each on the 15-bit tier: f * g by fe_mul, f^2
+// by fe_sq, f - g by fe_sub, each as a canonical row
+void shim_fe15(const int32_t *f, const int32_t *g, int32_t *out_mul, int32_t *out_sq,
+               int32_t *out_sub, int n) {
+  for (int i = 0; i < n; ++i) {
+    fe15 a, b, r;
+    fe_from_row15(a, f + 18 * i);
+    fe_from_row15(b, g + 18 * i);
+    fe_mul(r, a, b);
+    fe_to_row15(out_mul + 18 * i, r);
+    fe_sq(r, a);
+    fe_to_row15(out_sq + 18 * i, r);
+    fe_sub(r, a, b);
+    fe_to_row15(out_sub + 18 * i, r);
+  }
 }
 
 // the tile tree of tile_sums.cu, level by level

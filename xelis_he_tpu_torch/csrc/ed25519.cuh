@@ -7,11 +7,18 @@
 // with a carry, which keeps limbs below 2^26 + 2^17, and with such inputs a
 // column of fe_mul stays below 2^61.
 //
+// A second tier, fe15, keeps eighteen 15-bit limbs (the boundary rows' own
+// radix) with 64-bit column sums: 324 products a multiplication instead of
+// 100.  The point functions and the packed-lanes body are templates over the
+// field type, so the two tiers run the same formulas on independent
+// arithmetic and can be held to each other.
+//
 // At the kernels' edges points travel as the port's (4, 18) rows of 15-bit
 // limbs (X, Y, Z, T); outputs are always canonical, so rows compare exactly.
 //
 // Every function is XHE_HD: __host__ __device__ under nvcc.  A host build
-// (g++ -x c++ -DXHE_HD=) compiles the same arithmetic for the CPU tests.
+// (g++ -x c++ -DXHE_HD= -DXHE_NOINLINE=) compiles the same arithmetic for the
+// CPU tests.
 
 #pragma once
 #include <stddef.h>
@@ -19,6 +26,11 @@
 
 #ifndef XHE_HD
 #define XHE_HD __host__ __device__ __forceinline__
+#endif
+// the 324-product bodies of the 15-bit tier are real calls on the device:
+// inlined at every use they would multiply the build time and the code size
+#ifndef XHE_NOINLINE
+#define XHE_NOINLINE __host__ __device__ __noinline__
 #endif
 
 #ifdef XHE_COUNT_MULS
@@ -37,13 +49,18 @@ struct fe {
   uint32_t v[10];
 };
 
-struct ge {  // extended twisted-Edwards coordinates
-  fe X, Y, Z, T;
+template <class F>
+struct ge_t {  // extended twisted-Edwards coordinates over field tier F
+  F X, Y, Z, T;
 };
 
-struct ge_niels {  // (Y+X, Y-X, 2d*T, 2Z): the addend form of a table entry
-  fe YpX, YmX, T2d, Z2;
+template <class F>
+struct ge_niels_t {  // (Y+X, Y-X, 2d*T, 2Z): the addend form of a table entry
+  F YpX, YmX, T2d, Z2;
 };
+
+using ge = ge_t<fe>;
+using ge_niels = ge_niels_t<fe>;
 
 static XHE_HD int limb_width(int i) { return (i & 1) ? 25 : 26; }
 
@@ -383,14 +400,185 @@ static XHE_HD void fe_to_bytes(uint8_t *out, const fe &f) {
   out[o] = (uint8_t)acc;  // bits 248..254; bit 255 is 0
 }
 
-static XHE_HD void ge_from_rows(ge &p, const int32_t *rows) {
+// -- second tier: eighteen 15-bit limbs ----------------------------------------
+//
+// value = sum v[i] 2^(15 i) over 270 bits; 2^270 = 19 * 2^15 (mod p), so the
+// carry out of limb 17 wraps into limb 1 with weight 19.  Every operation
+// leaves limbs below 2^15 + 2^8; with such inputs a product is below 2^31 and
+// a folded column of fe_mul below 2^39.
+
+struct fe15 {
+  uint32_t v[18];
+};
+
+static XHE_HD void fe_set_small(fe15 &h, uint32_t x) {
+#pragma unroll
+  for (int i = 0; i < 18; ++i) h.v[i] = 0;
+  h.v[0] = x;
+}
+
+static XHE_HD void fe_d2(fe15 &h) {
+  const uint32_t c[18] = {0x7159u, 0x4d65u, 0x6e50u, 0x5eb4u, 0x156eu, 0x5076u,
+                          0x26a0u, 0x700au, 0x3000u, 0x67a2u, 0x4bbbu, 0x7407u,
+                          0x7198u, 0x7f9cu, 0x15b7u, 0x6ceeu, 0x2406u, 0x0u};
+#pragma unroll
+  for (int i = 0; i < 18; ++i) h.v[i] = c[i];
+}
+
+// carry limbs below 2^18 back under 2^15 (limb 1 keeps the wrap, at most 19 * 8)
+static XHE_HD void fe_carry(fe15 &h) {
+  uint32_t c = 0;
+#pragma unroll
+  for (int i = 0; i < 18; ++i) {
+    h.v[i] += c;
+    c = h.v[i] >> 15;
+    h.v[i] &= 0x7fffu;
+  }
+  h.v[1] += 19u * c;
+}
+
+static XHE_HD void fe_add(fe15 &h, const fe15 &f, const fe15 &g) {
+#pragma unroll
+  for (int i = 0; i < 18; ++i) h.v[i] = f.v[i] + g.v[i];
+  fe_carry(h);
+}
+
+// f - g as f + 2p + 2^16 p - g: the limbs of that multiple of p are
+// 2 (2^15 - 19), 2 (2^15 - 1) + 2 (2^15 - 19), fifteen of 4 (2^15 - 1), and
+// 2 (2^15 - 1), each above any carried limb of g
+static XHE_HD void fe_sub(fe15 &h, const fe15 &f, const fe15 &g) {
+#pragma unroll
+  for (int i = 0; i < 18; ++i) {
+    const uint32_t pad = (i == 0) ? 65498u : (i == 1) ? 131032u : (i == 17) ? 65534u : 131068u;
+    h.v[i] = f.v[i] + pad - g.v[i];
+  }
+  fe_carry(h);
+}
+
+static XHE_HD void fe_neg(fe15 &h, const fe15 &f) {
+  fe15 z;
+  fe_set_small(z, 0);
+  fe_sub(h, z, f);
+}
+
+static XHE_HD void fe_select(fe15 &h, bool cond, const fe15 &a, const fe15 &b) {
+#pragma unroll
+  for (int i = 0; i < 18; ++i) h.v[i] = cond ? a.v[i] : b.v[i];
+}
+
+static XHE_HD void fe_cneg(fe15 &h, bool cond, const fe15 &f) {
+  fe15 n;
+  fe_neg(n, f);
+  fe_select(h, cond, n, f);
+}
+
+// 35 column sums (each < 2^35) -> limbs.  Column k >= 18 has weight
+// 2^(15 k) = 19 * 2^(15 (k - 17)) and folds into column k - 17.  The carry
+// out of limb 17 (< 2^24) wraps into limb 1 and is carried on once more.
+static XHE_HD void fe15_reduce(fe15 &h, uint64_t t[35]) {
+#pragma unroll
+  for (int k = 18; k < 35; ++k) t[k - 17] += 19ull * t[k];
+  uint64_t c = 0;
+#pragma unroll
+  for (int i = 0; i < 18; ++i) {
+    t[i] += c;
+    c = t[i] >> 15;
+    h.v[i] = (uint32_t)(t[i] & 0x7fffull);
+  }
+  const uint64_t w = h.v[1] + 19ull * c;
+  h.v[1] = (uint32_t)(w & 0x7fffull);
+  uint32_t c2 = (uint32_t)(w >> 15);
+#pragma unroll
+  for (int i = 2; i < 18; ++i) {
+    h.v[i] += c2;
+    c2 = h.v[i] >> 15;
+    h.v[i] &= 0x7fffu;
+  }
+  h.v[1] += 19u * c2;  // c2 <= 1
+}
+
+static XHE_NOINLINE void fe_mul(fe15 &h, const fe15 &f, const fe15 &g) {
+  XHE_COUNT_MUL();
+  uint64_t t[35];
+#pragma unroll
+  for (int k = 0; k < 35; ++k) t[k] = 0;
+#pragma unroll
+  for (int i = 0; i < 18; ++i) {
+#pragma unroll
+    for (int j = 0; j < 18; ++j) t[i + j] += (uint64_t)f.v[i] * g.v[j];
+  }
+  fe15_reduce(h, t);
+}
+
+// the columns of fe_mul(h, f, f) with each cross product taken once, doubled:
+// 171 products
+static XHE_NOINLINE void fe_sq(fe15 &h, const fe15 &f) {
+  XHE_COUNT_SQ();
+  uint64_t t[35];
+#pragma unroll
+  for (int k = 0; k < 35; ++k) t[k] = 0;
+#pragma unroll
+  for (int i = 0; i < 18; ++i) {
+    t[2 * i] += (uint64_t)f.v[i] * f.v[i];
+#pragma unroll
+    for (int j = i + 1; j < 18; ++j) t[i + j] += (uint64_t)(2u * f.v[i]) * f.v[j];
+  }
+  fe15_reduce(h, t);
+}
+
+// a boundary row (limbs < 2^17, canonical or not) is a field element as it is
+static XHE_HD void fe_from_row15(fe15 &h, const int32_t *row) {
+#pragma unroll
+  for (int i = 0; i < 18; ++i) h.v[i] = (uint32_t)row[i];
+  fe_carry(h);
+}
+
+// canonical row: the value reduced into [0, p), limb 17 zero
+static XHE_HD void fe_to_row15(int32_t *row, const fe15 &f) {
+  fe15 c = f;
+  fe_carry(c);
+  // fold limb 17 (bits 255 and up) with 2^255 = 19; after the second fold
+  // the value is below 2^255 and every limb exact
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    c.v[0] += 19u * c.v[17];
+    c.v[17] = 0;
+    uint32_t cy = 0;
+#pragma unroll
+    for (int i = 0; i < 18; ++i) {
+      c.v[i] += cy;
+      cy = c.v[i] >> 15;
+      c.v[i] &= 0x7fffu;
+    }
+  }
+  // q = 1 iff value + 19 >= 2^255, i.e. value >= p
+  uint32_t q = (c.v[0] + 19u) >> 15;
+#pragma unroll
+  for (int i = 1; i < 17; ++i) q = (c.v[i] + q) >> 15;
+  c.v[0] += 19u * q;
+  uint32_t cy = 0;
+#pragma unroll
+  for (int i = 0; i < 17; ++i) {
+    c.v[i] += cy;
+    cy = c.v[i] >> 15;
+    c.v[i] &= 0x7fffu;
+    row[i] = (int32_t)c.v[i];
+  }
+  row[17] = 0;  // the carry out of limb 16 is the 2^255 q that was subtracted
+}
+
+// -- points, over either tier -----------------------------------------------------
+
+template <class F>
+static XHE_HD void ge_from_rows(ge_t<F> &p, const int32_t *rows) {
   fe_from_row15(p.X, rows);
   fe_from_row15(p.Y, rows + 18);
   fe_from_row15(p.Z, rows + 36);
   fe_from_row15(p.T, rows + 54);
 }
 
-static XHE_HD void ge_to_rows(int32_t *rows, const ge &p) {
+template <class F>
+static XHE_HD void ge_to_rows(int32_t *rows, const ge_t<F> &p) {
   fe_to_row15(rows, p.X);
   fe_to_row15(rows + 18, p.Y);
   fe_to_row15(rows + 36, p.Z);
@@ -399,7 +587,8 @@ static XHE_HD void ge_to_rows(int32_t *rows, const ge &p) {
 
 // -- group operations (the same formulas as the port's ops/curve.py) -------
 
-static XHE_HD void ge_identity(ge &p) {
+template <class F>
+static XHE_HD void ge_identity(ge_t<F> &p) {
   fe_set_small(p.X, 0);
   fe_set_small(p.Y, 1);
   fe_set_small(p.Z, 1);
@@ -407,8 +596,9 @@ static XHE_HD void ge_identity(ge &p) {
 }
 
 // unified extended addition (add-2008-hwcd-3, a = -1)
-static XHE_HD void ge_add(ge &r, const ge &p, const ge &q) {
-  fe a, b, c, d, e, f, g, h, t, d2;
+template <class F>
+static XHE_HD void ge_add(ge_t<F> &r, const ge_t<F> &p, const ge_t<F> &q) {
+  F a, b, c, d, e, f, g, h, t, d2;
   fe_sub(a, p.Y, p.X);
   fe_sub(t, q.Y, q.X);
   fe_mul(a, a, t);
@@ -432,8 +622,9 @@ static XHE_HD void ge_add(ge &r, const ge &p, const ge &q) {
 
 // dedicated doubling (dbl-2008-hwcd, a = -1); T is skipped when the next
 // operation is another doubling, which never reads it
-static XHE_HD void ge_dbl(ge &r, const ge &p, bool want_t) {
-  fe a, b, c, e, f, g, h, xy;
+template <class F>
+static XHE_HD void ge_dbl(ge_t<F> &r, const ge_t<F> &p, bool want_t) {
+  F a, b, c, e, f, g, h, xy;
   fe_sq(a, p.X);
   fe_sq(b, p.Y);
   fe_sq(c, p.Z);
@@ -450,8 +641,9 @@ static XHE_HD void ge_dbl(ge &r, const ge &p, bool want_t) {
   if (want_t) fe_mul(r.T, e, h);
 }
 
-static XHE_HD void ge_to_niels(ge_niels &n, const ge &p) {
-  fe d2;
+template <class F>
+static XHE_HD void ge_to_niels(ge_niels_t<F> &n, const ge_t<F> &p) {
+  F d2;
   fe_d2(d2);
   fe_add(n.YpX, p.Y, p.X);
   fe_sub(n.YmX, p.Y, p.X);
@@ -460,7 +652,8 @@ static XHE_HD void ge_to_niels(ge_niels &n, const ge &p) {
 }
 
 // the identity in niels form: (1, 1, 0, 2)
-static XHE_HD void ge_niels_identity(ge_niels &n) {
+template <class F>
+static XHE_HD void ge_niels_identity(ge_niels_t<F> &n) {
   fe_set_small(n.YpX, 1);
   fe_set_small(n.YmX, 1);
   fe_set_small(n.T2d, 0);
@@ -468,8 +661,9 @@ static XHE_HD void ge_niels_identity(ge_niels &n) {
 }
 
 // extended + niels -> extended; neg adds -Q (swap Y+-X, negate 2dT)
-static XHE_HD void ge_add_niels(ge &r, const ge &p, const ge_niels &q, bool neg) {
-  fe a, b, c, d, e, f, g, h, t2d;
+template <class F>
+static XHE_HD void ge_add_niels(ge_t<F> &r, const ge_t<F> &p, const ge_niels_t<F> &q, bool neg) {
+  F a, b, c, d, e, f, g, h, t2d;
   fe_sub(a, p.Y, p.X);
   fe_mul(a, a, neg ? q.YpX : q.YmX);
   fe_add(b, p.Y, p.X);
@@ -599,13 +793,15 @@ static XHE_HD void compress_one(uint8_t *out, const int32_t *rows) {
   fe_to_bytes(out, s);
 }
 
-// K2 body: slot s of pts (8, S, 4, 18) and digits (8, 64, S) -> out (4, 18)
+// K2 / K6 body over field tier F: slot s of pts (8, S, 4, 18) and digits
+// (8, 64, S) -> out (4, 18)
+template <class F>
 static XHE_HD void windowed_slot_k8(int32_t *out, const int32_t *pts, const uint8_t *digits,
                                     int S, int s) {
-  ge_niels table[8][8];
+  ge_niels_t<F> table[8][8];
 #pragma unroll 1
   for (int k = 0; k < 8; ++k) {
-    ge p1, p2, p3, p4, q;
+    ge_t<F> p1, p2, p3, p4, q;
     ge_from_rows(p1, pts + ((size_t)k * S + s) * 72);
     ge_dbl(p2, p1, true);
     ge_add(p3, p2, p1);
@@ -624,9 +820,9 @@ static XHE_HD void windowed_slot_k8(int32_t *out, const int32_t *pts, const uint
     ge_to_niels(table[k][7], q);
   }
 
-  ge_niels ident;
+  ge_niels_t<F> ident;
   ge_niels_identity(ident);
-  ge acc;
+  ge_t<F> acc;
   ge_identity(acc);
 #pragma unroll 1
   for (int w = 63; w >= 0; --w) {
@@ -641,6 +837,69 @@ static XHE_HD void windowed_slot_k8(int32_t *out, const int32_t *pts, const uint
       const int a = neg ? -e : e;
       ge_add_niels(acc, acc, a ? table[k][a - 1] : ident, neg);
     }
+  }
+  ge_to_rows(out, acc);
+}
+
+// K5 body: lane i of pts (N, 4, 18) and digits (64, N) -> out (4, 18) =
+// s_i * P_i.  An extended table 1P..8P, then 64 windows from the top of 4
+// doublings (T on the last only), a table pick (stored 8 picks the identity),
+// negation of X and T for a negative digit, and one unified addition.
+static XHE_HD void windowed_lane(int32_t *out, const int32_t *pts, const uint8_t *digits, int N,
+                                 int i) {
+  ge table[8];
+  ge_from_rows(table[0], pts + (size_t)i * 72);
+  ge_dbl(table[1], table[0], true);
+  ge_add(table[2], table[1], table[0]);
+  ge_dbl(table[3], table[1], true);
+  ge_add(table[4], table[3], table[0]);
+  ge_dbl(table[5], table[2], true);
+  ge_add(table[6], table[5], table[0]);
+  ge_dbl(table[7], table[3], true);
+
+  ge acc, sel;
+  ge_identity(acc);
+#pragma unroll 1
+  for (int w = 63; w >= 0; --w) {
+    ge_dbl(acc, acc, false);
+    ge_dbl(acc, acc, false);
+    ge_dbl(acc, acc, false);
+    ge_dbl(acc, acc, true);
+    const int e = (int)digits[(size_t)w * N + i] - 8;
+    const bool neg = e < 0;
+    const int a = neg ? -e : e;
+    if (a) {
+      sel = table[a - 1];
+    } else {
+      ge_identity(sel);
+    }
+    fe_cneg(sel.X, neg, sel.X);
+    fe_cneg(sel.T, neg, sel.T);
+    ge_add(acc, acc, sel);
+  }
+  ge_to_rows(out, acc);
+}
+
+// The unified addition as a real call.  K7's loop needs it: with the addition
+// inlined under the loop's bit test, cicc of CUDA 12.9 ends in a segmentation
+// fault (with or without the unroll pragmas and the launch bounds); behind a
+// call the same loop builds.
+static XHE_NOINLINE void ge_add_call(ge &r, const ge &p, const ge &q) { ge_add(r, p, q); }
+
+// K7 body: lane i of pts (N, 4, 18) and bit words (8, N) -> out (4, 18) =
+// s_i * P_i by binary double-and-add over bits 0..252, LSB first: words 0-6
+// give 32 bits each and word 7 gives 29; bits 253-255 are ignored.  Scalars
+// are public, so the addition is a branch on the bit; the unified addition
+// is complete, so the identity and equal points need no special case.
+static XHE_HD void daa_lane(int32_t *out, const int32_t *pts, const int32_t *bits, int N, int i) {
+  ge acc, base;
+  ge_identity(acc);
+  ge_from_rows(base, pts + (size_t)i * 72);
+#pragma unroll 1
+  for (int k = 0; k < 253; ++k) {
+    const uint32_t w = (uint32_t)bits[(size_t)(k >> 5) * N + i];
+    if ((w >> (k & 31)) & 1u) ge_add_call(acc, acc, base);
+    ge_dbl(base, base, true);
   }
   ge_to_rows(out, acc);
 }

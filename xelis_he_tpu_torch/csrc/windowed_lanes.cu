@@ -27,7 +27,7 @@ __global__ void __launch_bounds__(64)
                              int32_t *__restrict__ out, int S) {
   const int s = blockIdx.x * blockDim.x + threadIdx.x;
   if (s >= S) return;
-  windowed_slot_k8(out + (size_t)s * 72, pts, digits, S, s);
+  windowed_slot_k8<fe>(out + (size_t)s * 72, pts, digits, S, s);
 }
 
 extern "C" int xhe_windowed_lanes_k8(const void *pts, const void *digits, void *out, int S,

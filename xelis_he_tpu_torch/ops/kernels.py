@@ -1,5 +1,5 @@
-"""The four CUDA kernels of the block-verification path, with their wrappers,
-plain versions and launch counts.
+"""The seven CUDA kernels, with their wrappers, plain versions and launch
+counts.
 
 =====  ========================  =============================================
  id     kernel (csrc/)            replaces (xelis_he_tpu/ops/pallas_msm.py)
@@ -8,6 +8,9 @@ plain versions and launch counts.
  K2     windowed_lanes.cu         _windowed_kernel_k4_fe13 (K_PACK = 8)
  K3     tile_sums.cu              _tile_reduce_kernel + tile_sums_pallas
  K4     compress.cu               _compress_kernel + compress_pallas
+ K5     windowed_lane.cu          _windowed_kernel + msm_windowed_lanes_pallas
+ K6     windowed_lanes_fe15.cu    _windowed_kernel_k4 (the 18x15-bit tier)
+ K7     daa_lanes.cu              _daa_kernel + msm_daa_lanes_pallas
 =====  ========================  =============================================
 
 Each wrapper takes and returns torch tensors in the port's boundary formats:
@@ -39,7 +42,11 @@ TILE = 512  # lanes per tile of K3
 QTILE = 256  # slot granule of the signature lanes
 N_WINDOWS = 64  # signed 4-bit windows of a scalar < 2^253
 
-launches = {"decompress": 0, "windowed_lanes_k8": 0, "tile_sums": 0, "compress": 0}
+N_BITS = 253  # ristretto scalars are below 2^253: the bits K7 walks
+N_WORDS = 8  # 32-bit words of a packed scalar
+
+launches = {"decompress": 0, "windowed_lanes_k8": 0, "tile_sums": 0, "compress": 0,
+            "windowed_lanes": 0, "windowed_lanes_k8_fe15": 0, "daa_lanes": 0}
 
 
 def reset_launches() -> None:
@@ -50,19 +57,35 @@ def reset_launches() -> None:
 # field multiplications and squarings each kernel performs (counted by the
 # host build of csrc/ed25519.cuh in tests/test_torch_kernels.py), for bounds
 # on the card; the counts are per encoding, slot, point addition (tile - 1
-# per tile) and point
-FIELD_MULS = {"decompress": 28, "windowed_lanes_k8": 5336, "tile_sums": 9, "compress": 32}
-FIELD_SQS = {"decompress": 256, "windowed_lanes_k8": 1152, "tile_sums": 0, "compress": 255}
+# per tile), point and lane.  K7's work depends on its scalars: the entry is
+# the 253 doublings of a lane, and every set bit adds DAA_MULS_PER_SET_BIT.
+FIELD_MULS = {"decompress": 28, "windowed_lanes_k8": 5336, "tile_sums": 9, "compress": 32,
+              "windowed_lanes": 1451, "windowed_lanes_k8_fe15": 5336, "daa_lanes": 1012}
+FIELD_SQS = {"decompress": 256, "windowed_lanes_k8": 1152, "tile_sums": 0, "compress": 255,
+             "windowed_lanes": 1040, "windowed_lanes_k8_fe15": 1152, "daa_lanes": 1012}
+DAA_MULS_PER_SET_BIT = 9
 # 32-bit multiply-adds of one radix-2^25.5 field multiplication: 100
 # 32x32->64 products (two 32-bit halves each) and 10 multiplies by 19; of a
 # squaring: 55 products and the 5 multiplies by 19 of the wrapped limbs
 MULADDS_PER_FIELD_MUL = 210
 MULADDS_PER_FIELD_SQ = 115
+# on K6's 15-bit tier: 324 products (171 in a squaring) of two 15-bit limbs,
+# each below 2^30 and so one 32-bit multiply, and the 17 multiplies by 19 of
+# the carried high limbs; the 64-bit column sums are additions, which this
+# count leaves out on both tiers
+MULADDS_PER_FIELD_MUL15 = 341
+MULADDS_PER_FIELD_SQ15 = 188
 
 
-def muladds(name: str, items: int) -> int:
-    """32-bit multiply-adds of kernel ``name`` over ``items`` work items."""
-    return items * (FIELD_MULS[name] * MULADDS_PER_FIELD_MUL + FIELD_SQS[name] * MULADDS_PER_FIELD_SQ)
+def muladds(name: str, items: int, set_bits: int = 0) -> int:
+    """32-bit multiply-adds of kernel ``name`` over ``items`` work items
+    (``set_bits``: the set bits among K7's scalars, bits 0-252)."""
+    if name == "windowed_lanes_k8_fe15":
+        per_mul, per_sq = MULADDS_PER_FIELD_MUL15, MULADDS_PER_FIELD_SQ15
+    else:
+        per_mul, per_sq = MULADDS_PER_FIELD_MUL, MULADDS_PER_FIELD_SQ
+    muls = items * FIELD_MULS[name] + set_bits * DAA_MULS_PER_SET_BIT
+    return muls * per_mul + items * FIELD_SQS[name] * per_sq
 
 
 @functools.lru_cache(maxsize=None)
@@ -120,6 +143,23 @@ def recode_signed4_torch(scalars: torch.Tensor) -> torch.Tensor:
     return (nibs.reshape(-1, N_WINDOWS) + 1).T.to(torch.uint8).contiguous()
 
 
+def pack_bits(scalars) -> _np.ndarray:
+    """list[int] or (N, 32) uint8 canonical little-endian scalars -> (8, N)
+    uint32: bit k of scalar i is bit k % 32 of word k // 32."""
+    if not isinstance(scalars, _np.ndarray):
+        raw = b"".join(s.to_bytes(32, "little") for s in scalars)
+        scalars = _np.frombuffer(raw, dtype=_np.uint8).reshape(-1, 32)
+    words = _np.ascontiguousarray(scalars, dtype=_np.uint8).view("<u4")  # (N, 8)
+    return _np.ascontiguousarray(words.T)
+
+
+def pack_bits_torch(scalars: torch.Tensor) -> torch.Tensor:
+    """Device form of ``pack_bits``: (N, 32) uint8 -> (8, N) int32 words (the
+    same bits; K7 reads them as unsigned).  The little-endian bytes viewed as
+    words and transposed."""
+    return scalars.contiguous().view(torch.int32).T.contiguous()
+
+
 # ---------------------------------------------------------------------------
 # plain versions (torch Field / Curve, same formulas as the kernels)
 # ---------------------------------------------------------------------------
@@ -172,6 +212,54 @@ def windowed_lanes_k8_plain(points: torch.Tensor, digits: torch.Tensor) -> torch
             q = tuple(t[e.abs(), k, slots] for t in table)
             acc = c.add_niels(acc, q, e < 0)
     return point_to_rows(acc, fe).to(torch.int32)
+
+
+# K6's plain version: the torch Field is itself an 18 x 15-bit tier, so the
+# plain packed lanes already are K6's arithmetic in tensor form
+windowed_lanes_k8_fe15_plain = windowed_lanes_k8_plain
+
+
+def windowed_lanes_plain(points: torch.Tensor, digits: torch.Tensor) -> torch.Tensor:
+    """lane i = s_i P_i, as K5: an extended table 1P..8P, then 64 windows of
+    4 doublings, a signed table pick (stored 8 picks the identity) and one
+    unified addition."""
+    c = _curve(points.device)
+    fe = c.fe
+    n = points.shape[0]
+    t1 = rows_to_point(points)  # (N, 18) each
+    t2 = c.double(t1)
+    t3 = c.add(t2, t1)
+    t4 = c.double(t2)
+    t5 = c.add(t4, t1)
+    t6 = c.double(t3)
+    t7 = c.add(t6, t1)
+    t8 = c.double(t4)
+    entries = [c.identity((n,)), t1, t2, t3, t4, t5, t6, t7, t8]
+    table = tuple(torch.stack([e[i] for e in entries]) for i in range(4))  # (9, N, 18)
+    d = digits.to(torch.int64) - 8
+    lanes = torch.arange(n, device=points.device)
+    acc = c.identity((n,))
+    for w in range(N_WINDOWS - 1, -1, -1):
+        for want_t in (False, False, False, True):
+            acc = c.double(acc, want_t)
+        e = d[w]
+        x, y, z, t = (tab[e.abs(), lanes] for tab in table)
+        neg = e < 0
+        acc = c.add(acc, (fe.cneg(neg, x), y, z, fe.cneg(neg, t)))
+    return point_to_rows(acc, fe).to(torch.int32)
+
+
+def daa_lanes_plain(points: torch.Tensor, bits: torch.Tensor) -> torch.Tensor:
+    """lane i = s_i P_i, as K7: 253 steps, LSB first, of an addition of the
+    running base where the bit is set and a doubling of the base."""
+    c = _curve(points.device)
+    n = points.shape[0]
+    acc, base = c.identity((n,)), rows_to_point(points)
+    for k in range(N_BITS):
+        bit = (bits[k // 32].to(torch.int64) >> (k % 32)) & 1
+        acc = c.select(bit.bool(), c.add(acc, base), acc)
+        base = c.double(base)
+    return point_to_rows(acc, c.fe).to(torch.int32)
 
 
 # ---------------------------------------------------------------------------
@@ -227,6 +315,47 @@ def windowed_lanes_k8(points: torch.Tensor, digits: torch.Tensor) -> torch.Tenso
     out = torch.empty((S, 4, NLIMBS), dtype=torch.int32, device=points.device)
     if S:
         _launch("windowed_lanes_k8", "windowed_lanes", points, digits, out, S)
+    return out
+
+
+def windowed_lanes_k8_fe15(points: torch.Tensor, digits: torch.Tensor) -> torch.Tensor:
+    """K6: K2's function and shapes on the 15-bit field tier."""
+    S = points.shape[1]
+    _expect(points, torch.int32, (K_PACK, S, 4, NLIMBS), "lane points")
+    _expect(digits, torch.uint8, (K_PACK, N_WINDOWS, S), "lane digits")
+    if not _on_card(points):
+        return windowed_lanes_k8_fe15_plain(points, digits)
+    out = torch.empty((S, 4, NLIMBS), dtype=torch.int32, device=points.device)
+    if S:
+        _launch("windowed_lanes_k8_fe15", "windowed_lanes_fe15", points, digits, out, S)
+    return out
+
+
+def windowed_lanes(points: torch.Tensor, digits: torch.Tensor) -> torch.Tensor:
+    """K5: points (N, 4, 18) int32, digits (64, N) uint8 (e + 8) ->
+    (N, 4, 18) int32 canonical lanes s_i P_i."""
+    n = points.shape[0]
+    _expect(points, torch.int32, (n, 4, NLIMBS), "lane points")
+    _expect(digits, torch.uint8, (N_WINDOWS, n), "lane digits")
+    if not _on_card(points):
+        return windowed_lanes_plain(points, digits)
+    out = torch.empty((n, 4, NLIMBS), dtype=torch.int32, device=points.device)
+    if n:
+        _launch("windowed_lanes", "windowed_lane", points, digits, out, n)
+    return out
+
+
+def daa_lanes(points: torch.Tensor, bits: torch.Tensor) -> torch.Tensor:
+    """K7: points (N, 4, 18) int32, bits (8, N) int32 words (``pack_bits``)
+    -> (N, 4, 18) int32 canonical lanes s_i P_i over bits 0-252."""
+    n = points.shape[0]
+    _expect(points, torch.int32, (n, 4, NLIMBS), "lane points")
+    _expect(bits, torch.int32, (N_WORDS, n), "lane bit words")
+    if not _on_card(points):
+        return daa_lanes_plain(points, bits)
+    out = torch.empty((n, 4, NLIMBS), dtype=torch.int32, device=points.device)
+    if n:
+        _launch("daa_lanes", "daa_lanes", points, bits, out, n)
     return out
 
 
