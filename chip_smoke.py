@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (xelis_he_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--txs 10000] [--iters 3] [--seed 1]
+    python3 chip_smoke.py --kernels-from DIR [--seed 1]
 
 Phases, each of which fails the run loudly:
 
@@ -10,7 +11,9 @@ Phases, each of which fails the run loudly:
    one process each, side by side;
 3. kernels vs plain: each kernel's wrapper on the card against its plain
    PyTorch version on the card, on edge cases (bit-exact: every output is
-   canonical), against host references (pyref), and K6 against K2;
+   canonical), against host references (pyref), and K6 against K2 (by
+   encodings: K2 adds in another order); K2 also at a ragged slot count, K3
+   at tiles from 1 to 1024;
 4. main path: a block of ``--txs`` one-transfer transactions, built as
    bench.py builds it, verified through xelis_he_tpu_torch.verify_batch on
    ``Accelerator()``: one counted verify (launch counts, synchronising calls,
@@ -31,9 +34,13 @@ Phases, each of which fails the run loudly:
 9. the Python block path: the first 2,000 transactions of the block with
    XELIS_NATIVE_PREVERIFY=0 (``_fused_deferred``): accepted, no host-path
    block, one synchronising call;
-10. kernel times: each kernel and its plain version on the inputs of its
-    largest launch on its path (CUDA events, median of 5), with the card's
-    bound;
+10. kernel times: each kernel on the inputs of its largest launch on its
+    path, as device time (torch.profiler's records of it over 5 calls) and
+    as the time of a call in a run of 10 back to back (CUDA events: for a
+    small kernel that is mostly the host's launch cost), beside its plain
+    version's time (CUDA events around one call, median of 3) and the card's
+    bound; K3 also at every other shape the path launches it at (the group
+    sums of ``sum_points`` among them);
 11. trace: one more default verify under torch.profiler, whose CUDA activity
     gives the device's busy time and idle share during a verify.
 
@@ -42,6 +49,11 @@ just after.  Standard output ends with one {"kernels": [...]} JSON line, the
 card's name and power limit as nvidia-smi prints them, and {"ok": true,
 "device": {...}}.  Long logs go to chiprun_out/.  Without a CUDA device, or
 outside a checkout of the repository, it exits non-zero and prints no result.
+
+With ``--kernels-from DIR`` it only times K2 and K3 of the port checked out
+at DIR (for instance a ``git archive`` of an earlier commit) at the main
+path's largest shapes, on inputs made from ``--seed``, and prints one JSON
+line: run it on two checkouts in one call to compare them on one card.
 """
 
 from __future__ import annotations
@@ -53,6 +65,7 @@ import json
 import os
 import pathlib
 import random
+import re
 import statistics
 import subprocess
 import sys
@@ -70,15 +83,21 @@ MEM_BYTES_PER_S = 3.35e12
 INT32_LANES = 132 * 64
 
 KERNELS = {
-    # name: (source, TPU kernel it replaces)
-    "decompress": ("xelis_he_tpu_torch/csrc/decompress.cu", "xelis_he_tpu/ops/pallas_msm.py:596"),
-    "windowed_lanes_k8": ("xelis_he_tpu_torch/csrc/windowed_lanes.cu", "xelis_he_tpu/ops/pallas_msm.py:1468"),
-    "tile_sums": ("xelis_he_tpu_torch/csrc/tile_sums.cu", "xelis_he_tpu/ops/pallas_msm.py:453"),
-    "compress": ("xelis_he_tpu_torch/csrc/compress.cu", "xelis_he_tpu/ops/pallas_msm.py:559"),
-    "windowed_lanes": ("xelis_he_tpu_torch/csrc/windowed_lane.cu", "xelis_he_tpu/ops/pallas_msm.py:894"),
+    # name: (source, TPU kernel it replaces, CUDA function)
+    "decompress": ("xelis_he_tpu_torch/csrc/decompress.cu", "xelis_he_tpu/ops/pallas_msm.py:596",
+                   "decompress_kernel"),
+    "windowed_lanes_k8": ("xelis_he_tpu_torch/csrc/windowed_lanes.cu", "xelis_he_tpu/ops/pallas_msm.py:1468",
+                          "windowed_lanes_k8_kernel"),
+    "tile_sums": ("xelis_he_tpu_torch/csrc/tile_sums.cu", "xelis_he_tpu/ops/pallas_msm.py:453",
+                  "tile_sums_kernel"),
+    "compress": ("xelis_he_tpu_torch/csrc/compress.cu", "xelis_he_tpu/ops/pallas_msm.py:559",
+                 "compress_kernel"),
+    "windowed_lanes": ("xelis_he_tpu_torch/csrc/windowed_lane.cu", "xelis_he_tpu/ops/pallas_msm.py:894",
+                       "windowed_lane_kernel"),
     "windowed_lanes_k8_fe15": ("xelis_he_tpu_torch/csrc/windowed_lanes_fe15.cu",
-                               "xelis_he_tpu/ops/pallas_msm.py:1364"),
-    "daa_lanes": ("xelis_he_tpu_torch/csrc/daa_lanes.cu", "xelis_he_tpu/ops/pallas_msm.py:411"),
+                               "xelis_he_tpu/ops/pallas_msm.py:1364", "windowed_lanes_k8_fe15_kernel"),
+    "daa_lanes": ("xelis_he_tpu_torch/csrc/daa_lanes.cu", "xelis_he_tpu/ops/pallas_msm.py:411",
+                  "daa_lanes_kernel"),
 }
 # the kernels of the default verify (phase 4); the others run on the paths of phases 6-9
 DEFAULT_PATH = ("decompress", "windowed_lanes_k8", "tile_sums", "compress")
@@ -117,6 +136,42 @@ def expect_equal(what: str, kernel_out, plain_out) -> tuple[int, int]:
 
 def worst(*results: tuple[int, int]) -> tuple[int, int]:
     return max(n for n, _ in results), max(e for _, e in results)
+
+
+def device_ms(fn, kernel: str, reps: int = 5) -> float:
+    """Device time of one launch of the CUDA function named ``kernel`` in
+    ``fn`` (warm): the mean of torch.profiler's records of it over ``reps``
+    calls.  A trace can drop records, so the mean is over those it holds;
+    raises when it holds none."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    named = re.compile(rf"\b{kernel}\b")
+    us = [e.time_range.end - e.time_range.start for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA and named.search(e.name)]
+    if not us:
+        raise RuntimeError(f"the profiler recorded no launch of {kernel}")
+    return statistics.mean(us) / 1e3
+
+
+def call_ms(fn, n: int = 10) -> float:
+    """Time of one call of ``fn`` in a run of ``n`` back to back, CUDA events
+    around the run: a long kernel's device time, a short one's launch cost on
+    the host."""
+    import torch
+
+    fn()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(n):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / n
 
 
 def time_ms(fn, reps: int = 5) -> float:
@@ -242,7 +297,11 @@ def check_kernels(rng: random.Random, device) -> dict:
                 assert (digits[k, :, s_] == 8).all()
     k2_dig = torch.from_numpy(digits).to(device)
     acc = K.windowed_lanes_k8(k2_pts, k2_dig)
-    errs["windowed_lanes_k8"] = expect_equal("K2 rows", acc, K.windowed_lanes_k8_plain(k2_pts, k2_dig))
+    ragged = (k2_pts[:, :37].contiguous(), k2_dig[:, :, :37].contiguous())  # a block's slots left idle
+    errs["windowed_lanes_k8"] = worst(
+        expect_equal("K2 rows", acc, K.windowed_lanes_k8_plain(k2_pts, k2_dig)),
+        expect_equal("K2 rows, 37 slots", K.windowed_lanes_k8(*ragged), K.windowed_lanes_k8_plain(*ragged)),
+    )
     acc_enc = K.compress(acc).cpu().numpy()
     for s_ in list(range(40)) + [S - 1]:
         ref = multiscalar_mul([scal[k][s_] for k in range(K.K_PACK)],
@@ -263,16 +322,21 @@ def check_kernels(rng: random.Random, device) -> dict:
         k3_in[t * tile + tile // (t - 6) : (t + 1) * tile] = ident[: tile - tile // (t - 6)]
     k3_in = k3_in.contiguous()
     sums = K.tile_sums(k3_in, tile)
-    errs["tile_sums"] = expect_equal("K3 rows", sums, K.tile_sums_plain(k3_in, tile))
+    errs["tile_sums"] = worst(
+        expect_equal("K3 rows", sums, K.tile_sums_plain(k3_in, tile)),
+        # one block a tile up to K3_SUB rows; above, sub-tiles and a last block
+        *(expect_equal(f"K3 rows at tile {t}", K.tile_sums(k3_in[: 8 * t], t), K.tile_sums_plain(k3_in[: 8 * t], t))
+          for t in (1, 2, 64, 128, 1024)),
+    )
     if (K.compress(sums[:1]) != 0).any():
         raise AssertionError("K3: the sum of an identity tile is not the identity")
 
     # K6 on K2's 2048 slots: against its plain version and against K2 (two
-    # field tiers, one answer)
+    # field tiers and two orders of addition, one answer: compared encoded)
     acc15 = K.windowed_lanes_k8_fe15(k2_pts, k2_dig)
     errs["windowed_lanes_k8_fe15"] = worst(
         expect_equal("K6 rows", acc15, K.windowed_lanes_k8_fe15_plain(k2_pts, k2_dig)),
-        expect_equal("K6 rows against K2's", acc15, acc),
+        expect_equal("K6 encodings against K2's", K.compress(acc15), K.compress(acc)),
     )
 
     # K5 on 4096 lanes: pool points, edge scalars, zero scalars, identity lanes
@@ -346,13 +410,16 @@ def build_block(n_txs: int):
 
 class Recorder:
     """Wraps a kernel wrapper for one run: passes every call through and
-    keeps (clones of) the inputs of the call with the most work items."""
+    keeps (clones of) the inputs of the call with the most work items.  For
+    K3 it also keeps the first inputs of each shape it is called at, with
+    the number of calls (``shapes``)."""
 
     def __init__(self, module, name):
         self.module, self.name = module, name
         self.fn = getattr(module, name)
         self.args = None
         self.size = -1
+        self.shapes = {}
 
     def __call__(self, *args):
         packed = self.name in ("windowed_lanes_k8", "windowed_lanes_k8_fe15")
@@ -360,6 +427,11 @@ class Recorder:
         if size > self.size:
             self.size = size
             self.args = tuple(a.clone() if hasattr(a, "clone") else a for a in args)
+        if self.name == "tile_sums":
+            key = (size, args[1])
+            if key not in self.shapes:
+                self.shapes[key] = [0, (args[0].clone(), args[1])]
+            self.shapes[key][0] += 1
         return self.fn(*args)
 
     def __enter__(self):
@@ -746,6 +818,58 @@ def set_bits_253(words) -> int:
     return int(sum(((w >> k) & 1).sum() for k in range(32)))
 
 
+def bound(name, args, clock_hz) -> tuple[str, float, str]:
+    """(shape, bound ms, what bounds it) of kernel ``name`` on ``args``: the
+    function's 32-bit multiply-adds over the card's INT32 lanes at the max
+    SM clock, or its bytes (each input read once, each output written once)
+    over the memory rate, whichever is larger."""
+    from xelis_he_tpu_torch.ops import kernels as K
+
+    set_bits = 0
+    if name == "decompress":
+        n = args[0].shape[0]
+        items, nbytes, shape = n, n * (32 + 288 + 1), f"{n} encodings"
+    elif name in ("windowed_lanes_k8", "windowed_lanes_k8_fe15"):
+        n = args[0].shape[1]
+        items, nbytes, shape = n, n * (8 * 288 + 8 * 64 + 288), f"{n} slots"
+    elif name == "tile_sums":
+        n, tile = args[0].shape[0], args[1]
+        items, nbytes = n - n // tile, (n + n // tile) * 288
+        shape = f"{n} rows, tile {tile}"
+    elif name == "windowed_lanes":
+        n = args[0].shape[0]
+        items, nbytes, shape = n, n * (288 + 64 + 288), f"{n} lanes"
+    elif name == "daa_lanes":
+        n = args[0].shape[0]
+        set_bits = set_bits_253(args[1])
+        items, nbytes, shape = n, n * (288 + 32 + 288), f"{n} lanes, {set_bits} set bits"
+    else:
+        n = args[0].shape[0]
+        items, nbytes, shape = n, n * (288 + 32), f"{n} points"
+    ops_ms = K.muladds(name, items, set_bits) / (INT32_LANES * clock_hz) * 1e3
+    bytes_ms = nbytes / MEM_BYTES_PER_S * 1e3
+    return shape, max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms else "bytes"
+
+
+def k3_shapes(recorder, clock_hz) -> list[dict]:
+    """K3 at every other shape it is launched at on the path, the group sums
+    of ``sum_points`` among them, each held to its plain version."""
+    from xelis_he_tpu_torch.ops import kernels as K
+
+    rows = []
+    for (size, tile), (calls, args) in sorted(recorder.shapes.items()):
+        if size == recorder.size:
+            continue
+        expect_equal(f"K3 at {size} rows, tile {tile}", K.tile_sums(*args), K.tile_sums_plain(*args))
+        r = {"what": f"{calls} launches", "ms": device_ms(lambda: K.tile_sums(*args), KERNELS["tile_sums"][2]),
+             "call_ms": call_ms(lambda: K.tile_sums(*args))}
+        r["shape"], r["bound_ms"], r["bound_by"] = bound("tile_sums", args, clock_hz)
+        log(f"  tile_sums {r['what']} at {r['shape']}: {r['ms']:.4f} ms on the device, "
+            f"{r['call_ms']:.4f} ms a call (bound {r['bound_ms']:.5f} ms)")
+        rows.append(r)
+    return rows
+
+
 def kernel_line(recorders, launches, errs, clock_hz):
     import torch
 
@@ -762,42 +886,68 @@ def kernel_line(recorders, launches, errs, clock_hz):
         else:
             res = expect_equal(f"{name} (main-path shape)", out_k, out_p)
         n_bad, err = worst(res, errs[name])
-        ms = time_ms(lambda: kernel(*args))
+        ms, one_call_ms = device_ms(lambda: kernel(*args), KERNELS[name][2]), call_ms(lambda: kernel(*args))
         plain_ms = time_ms(lambda: plain(*args), reps=3)  # seconds each at these shapes
-        set_bits = 0
-        if name == "decompress":
-            n = args[0].shape[0]
-            items, nbytes, shape = n, n * (32 + 288 + 1), f"{n} encodings"
-        elif name in ("windowed_lanes_k8", "windowed_lanes_k8_fe15"):
-            n = args[0].shape[1]
-            items, nbytes, shape = n, n * (8 * 288 + 8 * 64 + 288), f"{n} slots"
-        elif name == "tile_sums":
-            n, tile = args[0].shape[0], args[1]
-            items, nbytes = n - n // tile, (n + n // tile) * 288
-            shape = f"{n} rows, tile {tile}"
-        elif name == "windowed_lanes":
-            n = args[0].shape[0]
-            items, nbytes, shape = n, n * (288 + 64 + 288), f"{n} lanes"
-        elif name == "daa_lanes":
-            n = args[0].shape[0]
-            set_bits = set_bits_253(args[1])
-            items, nbytes, shape = n, n * (288 + 32 + 288), f"{n} lanes, {set_bits} set bits"
-        else:
-            n = args[0].shape[0]
-            items, nbytes, shape = n, n * (288 + 32), f"{n} points"
-        ops_ms = K.muladds(name, items, set_bits) / (INT32_LANES * clock_hz) * 1e3
-        bytes_ms = nbytes / MEM_BYTES_PER_S * 1e3
-        source, replaces = KERNELS[name]
+        shape, bound_ms, bound_by = bound(name, args, clock_hz)
+        source, replaces, _ = KERNELS[name]
         rows.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[name], "max_abs_err": err, "max_mismatch": n_bad,
-            "shape": shape, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(ops_ms, bytes_ms), "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-            "library_ms": None,
+            "shape": shape, "ms": ms, "call_ms": one_call_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None,
         })
-        log(f"  {name} at {shape}: {ms:.3f} ms (plain {plain_ms:.1f} ms, bound {max(ops_ms, bytes_ms):.3f} ms)")
+        log(f"  {name} at {shape}: {ms:.4f} ms on the device, {one_call_ms:.4f} ms a call "
+            f"(plain {plain_ms:.1f} ms, bound {bound_ms:.5f} ms)")
+        if name == "tile_sums":
+            rows[-1]["variants"] = k3_shapes(recorders[name], clock_hz)
     torch.cuda.synchronize()
     return rows
+
+
+def kernels_from(root: pathlib.Path, seed: int) -> dict:
+    """K2 and K3 of the port checked out at ``root``: device time and call
+    time (over 100 calls back to back) at the main path's largest shapes (7,936 slots; 6,656 rows in tiles
+    of 512) and at a ``sum_points`` shape (32 rows in tiles of 16), on points
+    from K1 and digits of random scalars made from ``seed``; with a digest of
+    the K2 slot sums' encodings, which any two commits must share."""
+    import hashlib
+
+    import numpy as np
+
+    sys.path.insert(0, str(root))
+    import torch
+
+    from xelis_he_tpu_torch.ops import _build
+    from xelis_he_tpu_torch.ops import kernels as K
+    from xelis_he_tpu_torch.pyref.ristretto import mul_base
+
+    if not pathlib.Path(K.__file__).resolve().is_relative_to(root.resolve()):
+        raise RuntimeError(f"imported {K.__file__}, not the port at {root}")
+    _build.build_all()
+    device = torch.device("cuda")
+    rng = random.Random(seed)
+    gen = torch.Generator(device).manual_seed(seed)
+    encs = b"".join(mul_base(rng.randrange(1, L)).compress() for _ in range(1024))
+    pool, valid = K.decompress(torch.from_numpy(np.frombuffer(encs, np.uint8).reshape(-1, 32).copy()).to(device))
+    if not bool(valid.all()):
+        raise AssertionError("K1 rejected a valid encoding")
+    S = 7936
+    pts = pool[torch.randint(0, 1024, (8 * S,), device=device, generator=gen)].reshape(8, S, 4, 18).contiguous()
+    raw = b"".join(rng.randrange(L).to_bytes(32, "little") for _ in range(8 * S))
+    scal = torch.from_numpy(np.frombuffer(raw, np.uint8).reshape(8 * S, 32).copy()).to(device)
+    dig = K.recode_signed4_torch(scal).reshape(64, 8, S).permute(1, 0, 2).contiguous()
+    out = {"kernels_from": str(root)}
+    k2 = K.windowed_lanes_k8(pts, dig)
+    out["k2_digest"] = hashlib.sha256(K.compress(k2).cpu().numpy().tobytes()).hexdigest()[:16]
+    cases = [("windowed_lanes_k8", f"{S} slots", lambda: K.windowed_lanes_k8(pts, dig))]
+    for n, tile in ((6656, 512), (32, 16)):
+        rows = pool[torch.randint(0, 1024, (n,), device=device, generator=gen)].contiguous()
+        cases.append(("tile_sums", f"{n} rows, tile {tile}", lambda rows=rows, tile=tile: K.tile_sums(rows, tile)))
+    for name, shape, fn in cases:
+        fn()
+        out[f"{name} at {shape}"] = {"ms": device_ms(fn, KERNELS[name][2]), "call_ms": call_ms(fn, 100)}
+    torch.cuda.synchronize()
+    return out
 
 
 def main() -> int:
@@ -805,6 +955,8 @@ def main() -> int:
     ap.add_argument("--txs", type=int, default=10_000, help="transactions in the main-path block")
     ap.add_argument("--iters", type=int, default=3, help="timed verifies of the block")
     ap.add_argument("--seed", type=int, default=1, help="seed of the kernel inputs")
+    ap.add_argument("--kernels-from", type=pathlib.Path, default=None, metavar="DIR",
+                    help="only time K2 and K3 of the port checked out at DIR")
     args = ap.parse_args()
 
     import torch
@@ -818,6 +970,10 @@ def main() -> int:
     clock_hz = float(nvidia_smi("clocks.max.sm").split()[0]) * 1e6
     log(f"card: {torch.cuda.get_device_name(0)} | {card} | max SM clock {clock_hz / 1e6:.0f} MHz")
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
+    if args.kernels_from is not None:
+        print(json.dumps(kernels_from(args.kernels_from, args.seed)), flush=True)
+        print(card, flush=True)
+        return 0
 
     from xelis_he_tpu_torch.ops import _build
     from xelis_he_tpu_torch.ops.accel import Accelerator

@@ -7,7 +7,10 @@ mode (minutes per call on a CPU): ``jax_curve()`` for K1/K4, the transposed
 helpers of ``pallas_msm`` composed as each kernel composes them for K2 (the
 13-bit tier), K5, K6 and K7 (the 15-bit tier; they take their array module as
 an argument, so numpy runs them without a compile), ``msm._tree_reduce`` for
-K3, and pyref throughout.  Every comparison is exact.  The CUDA kernels
+K3, and pyref throughout.  Every comparison is exact.  K2 adds in another
+order than the TPU kernel (its slot is split over several threads), so it
+meets the TPU helpers and K6 as encodings, and its plain version and host
+build as rows.  The CUDA kernels
 themselves run only on the card (chip_smoke.py)."""
 
 import ctypes
@@ -54,6 +57,11 @@ def _canon_rows(coords):
 
 def _enc(points):
     return [p.compress() for p in points]
+
+
+def _row_enc(rows):
+    """(n, 4, 18) rows -> their encodings (K4's plain version)."""
+    return [bytes(r) for r in K.compress(torch.from_numpy(np.ascontiguousarray(rows).view(np.int32))).numpy()]
 
 
 def _encodings():
@@ -180,6 +188,12 @@ def fe13_reference():
     return _fe13_slots(K2_ROWS, K2_DIGITS)
 
 
+@pytest.fixture(scope="module")
+def k2_plain_rows():
+    """K2's wrapper on CPU tensors, i.e. its plain version, on K2's inputs."""
+    return K.windowed_lanes_k8(torch.from_numpy(K2_ROWS.view(np.int32)), torch.from_numpy(K2_DIGITS)).numpy()
+
+
 def _pyref_slots():
     out = []
     for s in range(S_SLOTS):
@@ -188,11 +202,10 @@ def _pyref_slots():
     return out
 
 
-def test_windowed_lanes_plain_matches_fe13_helpers_and_pyref(fe13_reference):
-    out = K.windowed_lanes_k8(torch.from_numpy(K2_ROWS.view(np.int32)), torch.from_numpy(K2_DIGITS))
-    # the same point formulas on both tiers: identical projective points
-    assert np.array_equal(out.numpy(), fe13_reference)
-    assert [bytes(r) for r in K.compress(out).numpy()] == _pyref_slots()
+def test_windowed_lanes_plain_matches_fe13_helpers_and_pyref(fe13_reference, k2_plain_rows):
+    # K2 splits a slot over K2_SPLIT accumulators, the TPU kernel keeps one:
+    # the same slot sums in other projective coordinates, so compared encoded
+    assert _row_enc(k2_plain_rows) == _row_enc(fe13_reference) == _pyref_slots()
 
 
 def test_recode_signed4_matches_pallas_msm():
@@ -341,12 +354,14 @@ def test_windowed_lane_plain_matches_pallas_helpers_and_pyref(k5_reference):
     assert [bytes(r) for r in K.compress(out).numpy()] == _lane_encodings(LANE_SCAL)
 
 
-def test_windowed_lanes_fe15_plain_matches_pallas_helpers_k2_and_pyref(k6_reference, fe13_reference):
+def test_windowed_lanes_fe15_plain_matches_pallas_helpers_k2_and_pyref(k6_reference, fe13_reference,
+                                                                         k2_plain_rows):
     pts, dig = torch.from_numpy(K2_ROWS.view(np.int32)), torch.from_numpy(K2_DIGITS)
     out = K.windowed_lanes_k8_fe15(pts, dig)
     assert np.array_equal(out.numpy(), k6_reference)
-    # K6 against K2 on the edge scalars: equal slot sums, on both sides
-    assert np.array_equal(out.numpy(), K.windowed_lanes_k8(pts, dig).numpy())
+    # K6 against K2 on the edge scalars: equal slot sums (K6 keeps the
+    # undivided order of the TPU kernels, so against their helpers by rows)
+    assert _row_enc(out.numpy()) == _row_enc(k2_plain_rows)
     assert np.array_equal(k6_reference, fe13_reference)
     assert [bytes(r) for r in K.compress(out).numpy()] == _pyref_slots()
 
@@ -371,18 +386,31 @@ def test_pack_bits_matches_pallas_msm():
 # -- K3 -----------------------------------------------------------------------
 
 
-def test_tile_sums_plain_matches_tree_reduce():
-    tile, n_tiles = 8, 4
-    pts = [mul_base(s) for s in _rand_scalars(tile * n_tiles - 6)] + [IDENTITY] * 6
-    rows = _rows(pts)
-    out = K.tile_sums(torch.from_numpy(rows.view(np.int32)), tile)
+@pytest.fixture(scope="module")
+def k3_points():
+    """256 host points, the identity among them, and their rows."""
+    pts = [mul_base(s) for s in _rand_scalars(250)] + [IDENTITY] * 6
+    return pts, _rows(pts)
+
+
+def test_tile_sums_plain_matches_tree_reduce(k3_points):
+    """Tile 8 is one sub-tile; tile 128 is two sub-tiles of K3_SUB rows,
+    whose partial sums meet in a second tree."""
     nc = numpy_curve()
-    for t in range(n_tiles):
-        coords = tuple(rows[t * tile : (t + 1) * tile, c, :] for c in range(4))
-        want = _tree_reduce(nc, coords, tile)  # lane i + half onto lane i, as K3
-        assert np.array_equal(out.numpy()[t], _canon_rows(tuple(c[None] for c in want))[0])
-    sums = [multiscalar_mul([1] * tile, pts[t * tile : (t + 1) * tile]) for t in range(n_tiles)]
-    assert [bytes(r) for r in K.compress(out).numpy()] == _enc(sums)
+    for tile, n_tiles in ((8, 4), (128, 2)):
+        pts = k3_points[0][-tile * n_tiles :]
+        rows = k3_points[1][-tile * n_tiles :]
+        out = K.tile_sums(torch.from_numpy(np.ascontiguousarray(rows).view(np.int32)), tile)
+        sub = min(tile, K.K3_SUB)
+        for t in range(n_tiles):
+            parts = []
+            for u in range(t * tile, (t + 1) * tile, sub):
+                coords = tuple(rows[u : u + sub, c, :] for c in range(4))
+                parts.append(_tree_reduce(nc, coords, sub))  # lane i + half onto lane i, as K3
+            want = _tree_reduce(nc, tuple(np.stack(c) for c in zip(*parts)), tile // sub)
+            assert np.array_equal(out.numpy()[t], _canon_rows(tuple(c[None] for c in want))[0])
+        sums = [multiscalar_mul([1] * tile, pts[t * tile : (t + 1) * tile]) for t in range(n_tiles)]
+        assert [bytes(r) for r in K.compress(out).numpy()] == _enc(sums)
 
 
 @pytest.mark.parametrize("counts", [(1, 1), (3, 9), (17, 2)])
@@ -443,6 +471,8 @@ def shim(tmp_path_factory):
     lib.shim_daa_lanes.argtypes = [vp, vp, vp, i]
     lib.shim_fe15.argtypes = [vp, vp, vp, vp, vp, i]
     lib.shim_square.argtypes = [vp, vp, vp, i]
+    lib.shim_k2_split.restype = i
+    lib.shim_k3_sub.restype = i
     lib.shim_mul_count.restype = ctypes.c_ulonglong
     lib.shim_sq_count.restype = ctypes.c_ulonglong
     return lib
@@ -493,27 +523,30 @@ def test_cuh_compress_matches_jax_curve(shim, k4_input, jax_encoded):
     assert _counts(shim) == (K.FIELD_MULS["compress"] * n, K.FIELD_SQS["compress"] * n)
 
 
-def test_cuh_windowed_lanes_matches_fe13_helpers_and_pyref(shim, fe13_reference):
+def test_cuh_windowed_lanes_matches_fe13_helpers_and_pyref(shim, fe13_reference, k2_plain_rows):
+    pts = np.ascontiguousarray(K2_ROWS.view(np.int32))
     out = np.zeros((S_SLOTS, 4, 18), np.int32)
     shim.shim_reset_mul_count()
-    shim.shim_windowed_lanes_k8(_ptr(np.ascontiguousarray(K2_ROWS.view(np.int32))), _ptr(K2_DIGITS),
-                                _ptr(out), S_SLOTS)
-    assert _counts(shim) == (K.FIELD_MULS["windowed_lanes_k8"] * S_SLOTS, K.FIELD_SQS["windowed_lanes_k8"] * S_SLOTS)
-    assert np.array_equal(out, fe13_reference)
+    shim.shim_windowed_lanes_k8(_ptr(pts), _ptr(K2_DIGITS), _ptr(out), S_SLOTS)
+    assert shim.shim_k2_split() == K.K2_SPLIT
+    # what the split executes: the function's work and the split's extra doublings
+    muls, sqs = K.k2_executed()
+    assert _counts(shim) == (muls * S_SLOTS, sqs * S_SLOTS)
+    assert np.array_equal(out, k2_plain_rows)
     enc = np.zeros((S_SLOTS, 32), np.uint8)
     shim.shim_compress(_ptr(out), _ptr(enc), S_SLOTS)
-    assert [bytes(r) for r in enc] == _pyref_slots()
+    assert [bytes(r) for r in enc] == _row_enc(fe13_reference) == _pyref_slots()
 
 
-def test_cuh_tile_sums_matches_plain(shim):
-    tile, n_tiles = 16, 4
-    rows = _rows([mul_base(s) for s in _rand_scalars(tile * n_tiles - 3)] + [IDENTITY] * 3)
-    rows = np.ascontiguousarray(rows.view(np.int32))
-    out = np.zeros((n_tiles, 4, 18), np.int32)
-    shim.shim_reset_mul_count()
-    shim.shim_tile_sums(_ptr(rows), _ptr(out), n_tiles, tile)
-    assert _counts(shim) == (K.FIELD_MULS["tile_sums"] * (tile - 1) * n_tiles, 0)
-    assert np.array_equal(out, K.tile_sums(torch.from_numpy(rows), tile).numpy())
+def test_cuh_tile_sums_matches_plain(shim, k3_points):
+    assert shim.shim_k3_sub() == K.K3_SUB
+    for tile, n_tiles in ((16, 4), (256, 1)):  # one sub-tile; four, reduced again
+        rows = np.ascontiguousarray(k3_points[1][-tile * n_tiles :].view(np.int32))
+        out = np.zeros((n_tiles, 4, 18), np.int32)
+        shim.shim_reset_mul_count()
+        shim.shim_tile_sums(_ptr(rows), _ptr(out), n_tiles, tile)
+        assert _counts(shim) == (K.FIELD_MULS["tile_sums"] * (tile - 1) * n_tiles, 0)
+        assert np.array_equal(out, K.tile_sums(torch.from_numpy(rows), tile).numpy())
 
 
 def test_cuh_windowed_lane_matches_pallas_helpers_and_plain(shim, k5_reference):
@@ -537,7 +570,7 @@ def test_cuh_windowed_lanes_fe15_matches_pallas_helpers_and_k2(shim, k6_referenc
     assert _counts(shim) == (K.FIELD_MULS[name] * S_SLOTS, K.FIELD_SQS[name] * S_SLOTS)
     assert np.array_equal(out, k6_reference)
     shim.shim_windowed_lanes_k8(_ptr(pts), _ptr(K2_DIGITS), _ptr(out_k2), S_SLOTS)
-    assert np.array_equal(out, out_k2)  # two field tiers, one answer
+    assert _row_enc(out) == _row_enc(out_k2)  # two field tiers and two orders, one answer
 
 
 def test_cuh_daa_lanes_matches_pallas_helpers_and_plain(shim, k7_reference):

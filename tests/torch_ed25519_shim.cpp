@@ -3,6 +3,8 @@
 // time, so their arithmetic is checked without a GPU.
 //   g++ -x c++ -DXHE_HD= -DXHE_NOINLINE= -DXHE_COUNT_MULS -O2 -shared -fPIC -I<csrc> this.cpp
 
+#include <vector>
+
 #include "ed25519.cuh"
 
 using namespace xhe;
@@ -17,9 +19,22 @@ void shim_compress(const int32_t *rows, uint8_t *out, int n) {
   for (int i = 0; i < n; ++i) compress_one(out + 32 * i, rows + 72 * i);
 }
 
+// K2 as windowed_lanes.cu runs it, tables in a scratch of the kernel's
+// layout: the K2_SPLIT threads of a slot one after the other, then thread 0's
+// combine
 void shim_windowed_lanes_k8(const int32_t *pts, const uint8_t *digits, int32_t *out, int S) {
-  for (int s = 0; s < S; ++s) windowed_slot_k8<fe>(out + 72 * s, pts, digits, S, s);
+  std::vector<ge_niels> tables((size_t)8 * K2_TABLE * S);
+  for (int s = 0; s < S; ++s) {
+    ge parts[K2_SPLIT];
+    for (int j = 0; j < K2_SPLIT; ++j)
+      windowed_part_k8<fe, K2_SPLIT>(parts[j], tables.data() + (size_t)j * (8 / K2_SPLIT) * K2_TABLE * S + s, S,
+                                     pts, digits, S, s, j);
+    combine_parts<fe, K2_SPLIT>(parts);
+    ge_to_rows(out + 72 * s, parts[0]);
+  }
 }
+
+int shim_k2_split(void) { return K2_SPLIT; }
 
 void shim_windowed_lanes_k8_fe15(const int32_t *pts, const uint8_t *digits, int32_t *out, int S) {
   for (int s = 0; s < S; ++s) windowed_slot_k8<fe15>(out + 72 * s, pts, digits, S, s);
@@ -50,26 +65,26 @@ void shim_fe15(const int32_t *f, const int32_t *g, int32_t *out_mul, int32_t *ou
   }
 }
 
-// the tile tree of tile_sums.cu, level by level
+// the trees of tile_sums.cu, level by level: each sub-tile's, as its block
+// runs it, then the partials' tree of a tile's last block
 void shim_tile_sums(const int32_t *rows, int32_t *out, int n_tiles, int tile) {
-  ge buf[1024];
+  const int sub = tile < K3_SUB ? tile : K3_SUB, nsub = tile / sub;
+  ge buf[32], parts[32];
   for (int b = 0; b < n_tiles; ++b) {
-    const int32_t *base = rows + (size_t)b * tile * 72;
-    const int half = tile >> 1;
-    const int width = half >= 1 ? half : 1;
-    for (int t = 0; t < width; ++t) {
-      ge_from_rows(buf[t], base + 72 * t);
-      if (half >= 1) {
-        ge y;
-        ge_from_rows(y, base + 72 * (t + half));
-        ge_add(buf[t], buf[t], y);
-      }
+    for (int u = 0; u < nsub; ++u) {
+      const int32_t *base = rows + ((size_t)b * nsub + u) * sub * 72;
+      for (int t = 0; t < (sub > 1 ? sub / 2 : 1); ++t) buf[t] = tile_leaf(base, t, sub);
+      for (int h = sub / 4; h >= 1; h >>= 1)
+        for (int t = 0; t < h; ++t) tree_node(buf, t, h);
+      parts[u] = buf[0];
     }
-    for (int h = width >> 1; h >= 1; h >>= 1)
-      for (int t = 0; t < h; ++t) ge_add(buf[t], buf[t], buf[t + h]);
-    ge_to_rows(out + (size_t)b * 72, buf[0]);
+    for (int h = nsub / 2; h >= 1; h >>= 1)
+      for (int t = 0; t < h; ++t) tree_node(parts, t, h);
+    ge_to_rows(out + (size_t)b * 72, parts[0]);
   }
 }
+
+int shim_k3_sub(void) { return K3_SUB; }
 
 // n field elements of 10 limbs each: out_mul = f * f by fe_mul, out_sq = f^2 by fe_sq
 void shim_square(const uint32_t *f, uint32_t *out_mul, uint32_t *out_sq, int n) {

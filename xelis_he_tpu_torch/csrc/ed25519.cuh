@@ -54,8 +54,10 @@ struct ge_t {  // extended twisted-Edwards coordinates over field tier F
   F X, Y, Z, T;
 };
 
+// (Y+X, Y-X, 2d*T, 2Z): the addend form of a table entry; 16-byte aligned,
+// so an entry in device memory is read with 128-bit loads
 template <class F>
-struct ge_niels_t {  // (Y+X, Y-X, 2d*T, 2Z): the addend form of a table entry
+struct alignas(16) ge_niels_t {
   F YpX, YmX, T2d, Z2;
 };
 
@@ -793,52 +795,135 @@ static XHE_HD void compress_one(uint8_t *out, const int32_t *rows) {
   fe_to_bytes(out, s);
 }
 
-// K2 / K6 body over field tier F: slot s of pts (8, S, 4, 18) and digits
-// (8, 64, S) -> out (4, 18)
+// One node of the pairwise tree over a power-of-two run of points: lane i + h
+// onto lane i.  K3's trees and K2's combine take h from half the run down
+// to 1, which is the order of the port's ops/msm.py _tree_reduce.
 template <class F>
-static XHE_HD void windowed_slot_k8(int32_t *out, const int32_t *pts, const uint8_t *digits,
-                                    int S, int s) {
-  ge_niels_t<F> table[8][8];
-#pragma unroll 1
-  for (int k = 0; k < 8; ++k) {
-    ge_t<F> p1, p2, p3, p4, q;
-    ge_from_rows(p1, pts + ((size_t)k * S + s) * 72);
-    ge_dbl(p2, p1, true);
-    ge_add(p3, p2, p1);
-    ge_dbl(p4, p2, true);
-    ge_to_niels(table[k][0], p1);
-    ge_to_niels(table[k][1], p2);
-    ge_to_niels(table[k][2], p3);
-    ge_to_niels(table[k][3], p4);
-    ge_add(q, p4, p1);  // 5P
-    ge_to_niels(table[k][4], q);
-    ge_dbl(q, p3, true);  // 6P
-    ge_to_niels(table[k][5], q);
-    ge_add(q, q, p1);  // 7P
-    ge_to_niels(table[k][6], q);
-    ge_dbl(q, p4, true);  // 8P
-    ge_to_niels(table[k][7], q);
-  }
+static XHE_HD void tree_node(ge_t<F> *buf, int i, int h) {
+  ge_t<F> x = buf[i];
+  const ge_t<F> y = buf[i + h];
+  ge_add(x, x, y);
+  buf[i] = x;
+}
 
-  ge_niels_t<F> ident;
-  ge_niels_identity(ident);
-  ge_t<F> acc;
+// -- K2 / K6: slot s of pts (8, S, 4, 18) and digits (8, 64, S) is
+// sum_{k<8} s_k P_k.  The slot's 8 subs are split over T threads: thread j
+// owns subs [j 8/T, (j+1) 8/T) and runs its own accumulator, and the T
+// partial sums are added at the end.  K2 runs T = K2_SPLIT; K6 runs the
+// undivided body (T = 1), the order K2 had before its split.
+//
+// A sub's table holds 9 niels entries, entry a = aP (entry 0 the identity,
+// which stored digit 8, e = 0, picks).  Entry a of a thread's sub kk lies at
+// table[(9 kk + a) stride]: K2 keeps the tables in a device scratch with the
+// stride S (one slot's entry is 160 contiguous bytes), K6 in a local array
+// with the stride 1.
+
+constexpr int K2_SPLIT = 2;  // threads a slot of K2 (ops/kernels.py K2_SPLIT)
+constexpr int K2_TABLE = 9;  // niels entries a sub: 0P..8P
+
+template <class F>
+static XHE_HD void niels_table_0_to_8(ge_niels_t<F> *table, size_t stride, const int32_t *rows) {
+  ge_t<F> p1, p2, p3, p4, q;
+  ge_niels_t<F> n;
+  ge_niels_identity(n);
+  table[0] = n;
+  ge_from_rows(p1, rows);
+  ge_dbl(p2, p1, true);
+  ge_add(p3, p2, p1);
+  ge_dbl(p4, p2, true);
+  ge_to_niels(n, p1);
+  table[stride] = n;
+  ge_to_niels(n, p2);
+  table[2 * stride] = n;
+  ge_to_niels(n, p3);
+  table[3 * stride] = n;
+  ge_to_niels(n, p4);
+  table[4 * stride] = n;
+  ge_add(q, p4, p1);  // 5P
+  ge_to_niels(n, q);
+  table[5 * stride] = n;
+  ge_dbl(q, p3, true);  // 6P
+  ge_to_niels(n, q);
+  table[6 * stride] = n;
+  ge_add(q, q, p1);  // 7P
+  ge_to_niels(n, q);
+  table[7 * stride] = n;
+  ge_dbl(q, p4, true);  // 8P
+  ge_to_niels(n, q);
+  table[8 * stride] = n;
+}
+
+// thread j's part: the tables of its 8/T subs, then 64 windows from the top,
+// each of 4 doublings of its own accumulator and 8/T signed-digit table adds.
+// A window's digits are loaded before its doublings, which hide the load.
+template <class F, int T>
+static XHE_HD void windowed_part_k8(ge_t<F> &acc, ge_niels_t<F> *table, size_t stride,
+                                    const int32_t *pts, const uint8_t *digits, int S, int s, int j) {
+  constexpr int KT = 8 / T;
+  static_assert(KT * T == 8, "T divides the 8 subs");
+#pragma unroll 1
+  for (int kk = 0; kk < KT; ++kk)
+    niels_table_0_to_8(table + (size_t)kk * K2_TABLE * stride, stride,
+                       pts + ((size_t)(j * KT + kk) * S + s) * 72);
+
   ge_identity(acc);
 #pragma unroll 1
   for (int w = 63; w >= 0; --w) {
+    uint64_t stored = 0;  // byte kk: the stored digit of sub j KT + kk
+#pragma unroll
+    for (int kk = 0; kk < KT; ++kk)
+      stored |= (uint64_t)digits[((size_t)(j * KT + kk) * 64 + w) * S + s] << (8 * kk);
     ge_dbl(acc, acc, false);
     ge_dbl(acc, acc, false);
     ge_dbl(acc, acc, false);
     ge_dbl(acc, acc, true);
 #pragma unroll 1
-    for (int k = 0; k < 8; ++k) {
-      const int e = (int)digits[((size_t)k * 64 + w) * S + s] - 8;
+    for (int kk = 0; kk < KT; ++kk) {
+      const int e = (int)((stored >> (8 * kk)) & 0xffu) - 8;
       const bool neg = e < 0;
       const int a = neg ? -e : e;
-      ge_add_niels(acc, acc, a ? table[k][a - 1] : ident, neg);
+      ge_add_niels(acc, acc, table[((size_t)kk * K2_TABLE + a) * stride], neg);
     }
   }
+}
+
+// the combine: parts[0] = the sum of the T partial sums, by the tree of
+// tree_node (T - 1 unified additions)
+template <class F, int T>
+static XHE_HD void combine_parts(ge_t<F> *parts) {
+#pragma unroll
+  for (int h = T / 2; h >= 1; h >>= 1)
+#pragma unroll
+    for (int i = 0; i < h; ++i) tree_node(parts, i, h);
+}
+
+// K6 body: the undivided slot, its tables in a local array -> out (4, 18)
+template <class F>
+static XHE_HD void windowed_slot_k8(int32_t *out, const int32_t *pts, const uint8_t *digits,
+                                    int S, int s) {
+  ge_niels_t<F> table[8 * K2_TABLE];
+  ge_t<F> acc;
+  windowed_part_k8<F, 1>(acc, table, 1, pts, digits, S, s, 0);
   ge_to_rows(out, acc);
+}
+
+// -- K3: a tile of rows is cut into sub-tiles of K3_SUB rows (the whole tile
+// when it is smaller).  Each sub-tile is reduced by the tree, and the
+// sub-tiles' partial sums by the tree again.
+
+constexpr int K3_SUB = 64;  // rows a block of K3 reduces (ops/kernels.py K3_SUB)
+
+// thread t's leaf of a sub-tile of n rows: row t plus row t + n/2 (row 0
+// alone when n is 1)
+static XHE_HD ge tile_leaf(const int32_t *rows, int t, int n) {
+  ge a;
+  ge_from_rows(a, rows + 72 * t);
+  if (n > 1) {
+    ge b;
+    ge_from_rows(b, rows + 72 * (t + n / 2));
+    ge_add(a, a, b);
+  }
+  return a;
 }
 
 // K5 body: lane i of pts (N, 4, 18) and digits (64, N) -> out (4, 18) =

@@ -13,8 +13,8 @@
 //
 // Bound: operations, 5,336 field multiplications and 1,152 squarings per
 // slot, about three times the default tier's products, against ~3 KB of
-// inputs.  One thread per slot; the eight niels tables (18 KB a thread) sit
-// in local memory.  fe15's multiplication and squaring are real calls, not
+// inputs.  One thread per slot, the undivided body that K2 split; the eight
+// 9-entry niels tables (20 KB a thread) sit in local memory.  fe15's multiplication and squaring are real calls, not
 // inlined, which keeps the build time and the code size near the default
 // kernel's at the cost of passing operands through local memory.
 

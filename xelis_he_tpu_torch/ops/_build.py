@@ -32,8 +32,8 @@ _vp, _int = ctypes.c_void_p, ctypes.c_int
 # each returns the cudaError_t of its launch
 SIGNATURES = {
     "decompress": ("xhe_decompress", [_vp, _vp, _vp, _int, _vp]),
-    "windowed_lanes": ("xhe_windowed_lanes_k8", [_vp, _vp, _vp, _int, _vp]),
-    "tile_sums": ("xhe_tile_sums", [_vp, _vp, _int, _int, _vp]),
+    "windowed_lanes": ("xhe_windowed_lanes_k8", [_vp, _vp, _vp, _vp, _int, _vp]),
+    "tile_sums": ("xhe_tile_sums", [_vp, _vp, _vp, _vp, _int, _int, _vp]),
     "compress": ("xhe_compress", [_vp, _vp, _int, _vp]),
     "windowed_lane": ("xhe_windowed_lanes", [_vp, _vp, _vp, _int, _vp]),
     "windowed_lanes_fe15": ("xhe_windowed_lanes_k8_fe15", [_vp, _vp, _vp, _int, _vp]),

@@ -18,8 +18,8 @@ points are (n, 4, 18) int32 rows of 15-bit limbs (X, Y, Z, T), canonical on
 every kernel output; encodings and scalars are uint8.  On a CUDA tensor the
 wrapper launches its kernel on the current stream (or raises); on a CPU
 tensor it runs the kernel's plain version, built from ops.fe / ops.curve
-with the same formulas, so the two agree bit for bit.  ``launches`` counts
-kernel launches only.
+with the same formulas in the same order, so the two agree bit for bit.
+``launches`` counts kernel launches only.
 
 Why each kernel is bound by operations, not bytes, and what its design does
 about it, is noted at the top of its .cu file.
@@ -38,7 +38,11 @@ from .fe import Field, NLIMBS
 from .msm import _tree_reduce
 
 K_PACK = 8  # scalar-muls packed into one slot of K2
+K2_SPLIT = 2  # threads a slot of K2 (csrc/ed25519.cuh K2_SPLIT)
+K2_TABLE = 9  # niels entries a sub of K2, 0P..8P (its scratch: K_PACK x K2_TABLE a slot)
 TILE = 512  # lanes per tile of K3
+K3_SUB = 64  # rows a block of K3 reduces (csrc/ed25519.cuh K3_SUB)
+GE_WORDS = 40  # 32-bit words of a point or niels entry in the kernels' radix 2^25.5
 QTILE = 256  # slot granule of the signature lanes
 N_WINDOWS = 64  # signed 4-bit windows of a scalar < 2^253
 
@@ -75,6 +79,22 @@ MULADDS_PER_FIELD_SQ = 115
 # count leaves out on both tiers
 MULADDS_PER_FIELD_MUL15 = 341
 MULADDS_PER_FIELD_SQ15 = 188
+
+
+# What K2 executes a slot when the slot is split over ``split`` threads:
+# each thread doubles its own accumulator (the 256 doublings of a slot are
+# 832 multiplications and 1,024 squarings), and the partial sums meet in
+# split - 1 unified additions of 9 multiplications.  The bound keeps
+# FIELD_MULS / FIELD_SQS, the work of the function: the extra doublings are
+# the cost of the design.
+K2_DOUBLING_MULS, K2_DOUBLING_SQS = 832, 1024
+
+
+def k2_executed(split: int = K2_SPLIT) -> tuple[int, int]:
+    """(field multiplications, squarings) K2 executes a slot at ``split``."""
+    extra = split - 1
+    return (FIELD_MULS["windowed_lanes_k8"] + extra * (K2_DOUBLING_MULS + FIELD_MULS["tile_sums"]),
+            FIELD_SQS["windowed_lanes_k8"] + extra * K2_DOUBLING_SQS)
 
 
 def muladds(name: str, items: int, set_bits: int = 0) -> int:
@@ -176,19 +196,29 @@ def compress_plain(rows: torch.Tensor) -> torch.Tensor:
 
 
 def tile_sums_plain(rows: torch.Tensor, tile: int) -> torch.Tensor:
-    """The tree of K3 per tile: lane i + tile/2 onto lane i, then halving."""
+    """K3's order: each tile cut into sub-tiles of K3_SUB rows (the whole
+    tile when it is smaller), each reduced by ``_tree_reduce`` (lane i + h
+    onto lane i, h halving), then the sub-tiles' partial sums by
+    ``_tree_reduce`` again."""
     c = _curve(rows.device)
     n = rows.shape[0]
-    lanes = rows.reshape(n // tile, tile, 4, NLIMBS).transpose(0, 1)  # tile lanes first
-    return point_to_rows(_tree_reduce(c, rows_to_point(lanes), tile), c.fe).to(torch.int32)
+    sub = min(tile, K3_SUB)
+    lanes = rows.reshape(n // tile, tile // sub, sub, 4, NLIMBS).permute(2, 0, 1, 3, 4)  # sub-tile lanes first
+    parts = _tree_reduce(c, rows_to_point(lanes), sub)  # (n_tiles, tile / sub) each
+    parts = tuple(p.transpose(0, 1) for p in parts)  # partials first
+    return point_to_rows(_tree_reduce(c, parts, tile // sub), c.fe).to(torch.int32)
 
 
-def windowed_lanes_k8_plain(points: torch.Tensor, digits: torch.Tensor) -> torch.Tensor:
-    """slot s = sum_k s_k P_k, as K2: per-sub 1P..8P niels tables, then 64
-    windows of 4 doublings and 8 signed-digit adds."""
+def packed_slots_plain(points: torch.Tensor, digits: torch.Tensor, split: int) -> torch.Tensor:
+    """slot s = sum_k s_k P_k with the slot split over ``split`` threads, as
+    the packed-lanes body of csrc/ed25519.cuh: per-sub 1P..8P niels tables;
+    thread j owns subs [j 8/split, (j+1) 8/split) and runs its own
+    accumulator over 64 windows of 4 doublings and 8/split signed-digit adds;
+    then ``_tree_reduce`` adds the partial sums."""
     c = _curve(points.device)
     fe = c.fe
     S = points.shape[1]
+    per = K_PACK // split
     t1 = rows_to_point(points)  # (8, S, 18) each
     t2 = c.double(t1)
     t3 = c.add(t2, t1)
@@ -200,23 +230,31 @@ def windowed_lanes_k8_plain(points: torch.Tensor, digits: torch.Tensor) -> torch
     ones, zeros = fe.ONE.expand(K_PACK, S, NLIMBS), fe.ZERO.expand(K_PACK, S, NLIMBS)
     ident = (ones, ones, zeros, 2 * ones)
     entries = [ident] + [c.to_niels(t) for t in (t1, t2, t3, t4, t5, t6, t7, t8)]
-    table = tuple(torch.stack([e[i] for e in entries]) for i in range(4))  # (9, 8, S, 18)
-    d = digits.to(torch.int64) - 8
-    slots = torch.arange(S, device=points.device)
-    acc = c.identity((S,))
+    # (9, split, per, S, 18): sub k = j per + kk of thread j
+    table = tuple(torch.stack([e[i] for e in entries]).reshape(9, split, per, S, NLIMBS) for i in range(4))
+    d = (digits.to(torch.int64) - 8).reshape(split, per, N_WINDOWS, S)
+    threads = torch.arange(split, device=points.device)[:, None]
+    slots = torch.arange(S, device=points.device)[None, :]
+    acc = c.identity((split, S))
     for w in range(N_WINDOWS - 1, -1, -1):
         for want_t in (False, False, False, True):
             acc = c.double(acc, want_t)
-        for k in range(K_PACK):
-            e = d[k, w]
-            q = tuple(t[e.abs(), k, slots] for t in table)
+        for kk in range(per):
+            e = d[:, kk, w]  # (split, S)
+            q = tuple(t[e.abs(), threads, kk, slots] for t in table)
             acc = c.add_niels(acc, q, e < 0)
-    return point_to_rows(acc, fe).to(torch.int32)
+    return point_to_rows(_tree_reduce(c, acc, split), fe).to(torch.int32)
 
 
-# K6's plain version: the torch Field is itself an 18 x 15-bit tier, so the
-# plain packed lanes already are K6's arithmetic in tensor form
-windowed_lanes_k8_fe15_plain = windowed_lanes_k8_plain
+def windowed_lanes_k8_plain(points: torch.Tensor, digits: torch.Tensor) -> torch.Tensor:
+    """K2's order: the slot split over K2_SPLIT threads."""
+    return packed_slots_plain(points, digits, K2_SPLIT)
+
+
+def windowed_lanes_k8_fe15_plain(points: torch.Tensor, digits: torch.Tensor) -> torch.Tensor:
+    """K6's order: one accumulator a slot (the torch Field is itself an
+    18 x 15-bit tier, so this is K6's arithmetic in tensor form)."""
+    return packed_slots_plain(points, digits, 1)
 
 
 def windowed_lanes_plain(points: torch.Tensor, digits: torch.Tensor) -> torch.Tensor:
@@ -306,7 +344,8 @@ def decompress(enc: torch.Tensor):
 
 def windowed_lanes_k8(points: torch.Tensor, digits: torch.Tensor) -> torch.Tensor:
     """K2: points (8, S, 4, 18) int32, digits (8, 64, S) uint8 (e + 8) ->
-    (S, 4, 18) int32 canonical slot sums."""
+    (S, 4, 18) int32 canonical slot sums.  The kernel builds its niels
+    tables in a scratch the wrapper allocates (``k2_tables``)."""
     S = points.shape[1]
     _expect(points, torch.int32, (K_PACK, S, 4, NLIMBS), "lane points")
     _expect(digits, torch.uint8, (K_PACK, N_WINDOWS, S), "lane digits")
@@ -314,8 +353,14 @@ def windowed_lanes_k8(points: torch.Tensor, digits: torch.Tensor) -> torch.Tenso
         return windowed_lanes_k8_plain(points, digits)
     out = torch.empty((S, 4, NLIMBS), dtype=torch.int32, device=points.device)
     if S:
-        _launch("windowed_lanes_k8", "windowed_lanes", points, digits, out, S)
+        tables = k2_tables(S, points.device)
+        _launch("windowed_lanes_k8", "windowed_lanes", points, digits, out, tables, S)
     return out
+
+
+def k2_tables(S: int, device) -> torch.Tensor:
+    """K2's scratch: the niels tables of S slots (8 subs x 9 entries each)."""
+    return torch.empty((K_PACK * K2_TABLE * S, GE_WORDS), dtype=torch.int32, device=device)
 
 
 def windowed_lanes_k8_fe15(points: torch.Tensor, digits: torch.Tensor) -> torch.Tensor:
@@ -368,10 +413,32 @@ def tile_sums(rows: torch.Tensor, tile: int) -> torch.Tensor:
         raise ValueError(f"tile {tile} must be a power of two <= 1024 dividing {n}")
     if not _on_card(rows):
         return tile_sums_plain(rows, tile)
-    out = torch.empty((n // tile, 4, NLIMBS), dtype=torch.int32, device=rows.device)
+    n_tiles = n // tile
+    out = torch.empty((n_tiles, 4, NLIMBS), dtype=torch.int32, device=rows.device)
     if n:
-        _launch("tile_sums", "tile_sums", rows, out, n // tile, tile)
+        partials, counters = _k3_scratch(n, n_tiles, rows.device) if tile > K3_SUB else (None, None)
+        _launch("tile_sums", "tile_sums", rows, out, partials, counters, n_tiles, tile)
     return out
+
+
+# K3's scratch for tiles above K3_SUB rows, one per (device, stream): the
+# sub-tiles' partial sums and a counter a tile.  The counters are zeroed when
+# the scratch is made or grown, and the last block of each tile sets its
+# counter back to zero, so a call adds no fill launch.  Launches on one
+# stream run in order, so no two use the scratch at once.
+_k3_scratches: dict[tuple, tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def _k3_scratch(n: int, n_tiles: int, device) -> tuple[torch.Tensor, torch.Tensor]:
+    key = (device, torch.cuda.current_stream(device).cuda_stream)
+    have = _k3_scratches.get(key)
+    if have is None or have[0].shape[0] < n // K3_SUB or have[1].shape[0] < n_tiles:
+        rows = max(n // K3_SUB, have[0].shape[0] if have else 0)
+        tiles = max(n_tiles, have[1].shape[0] if have else 0)
+        have = (torch.empty((rows, GE_WORDS), dtype=torch.int32, device=device),
+                torch.zeros((tiles,), dtype=torch.int32, device=device))
+        _k3_scratches[key] = have
+    return have
 
 
 def compress(rows: torch.Tensor) -> torch.Tensor:
