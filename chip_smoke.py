@@ -12,8 +12,11 @@ Phases, each of which fails the run loudly:
 3. kernels vs plain: each kernel's wrapper on the card against its plain
    PyTorch version on the card, on edge cases (bit-exact: every output is
    canonical), against host references (pyref), and K6 against K2 (by
-   encodings: K2 adds in another order); K2 also at a ragged slot count, K3
-   at tiles from 1 to 1024;
+   encodings: K2 adds in another order); K1 and K4 also at counts at and
+   around their blocks' edges, K4 on 4-torsion cosets with Z != 1 (both
+   branches of its encode's rotation and sign flip), K2 at a ragged slot
+   count, K3 at tiles from 1 to 1024; ptxas must report no spills for K1 and
+   K4;
 4. main path: a block of ``--txs`` one-transfer transactions, built as
    bench.py builds it, verified through xelis_he_tpu_torch.verify_batch on
    ``Accelerator()``: one counted verify (launch counts, synchronising calls,
@@ -50,10 +53,12 @@ card's name and power limit as nvidia-smi prints them, and {"ok": true,
 "device": {...}}.  Long logs go to chiprun_out/.  Without a CUDA device, or
 outside a checkout of the repository, it exits non-zero and prints no result.
 
-With ``--kernels-from DIR`` it only times K2 and K3 of the port checked out
-at DIR (for instance a ``git archive`` of an earlier commit) at the main
-path's largest shapes, on inputs made from ``--seed``, and prints one JSON
-line: run it on two checkouts in one call to compare them on one card.
+With ``--kernels-from DIR`` it only times K1-K5 and K7 of the port checked
+out at DIR (for instance a ``git archive`` of an earlier commit) at the main
+path's largest shapes, on inputs made from ``--seed``, with a digest of each
+output and K1's and K4's ptxas figures and SASS mix of one squaring, and
+prints one JSON line: run it on two checkouts in one call to compare them on
+one card.
 """
 
 from __future__ import annotations
@@ -229,6 +234,36 @@ def encodings_with_edges(rng: random.Random, n: int):
     return arr, pts, ok
 
 
+RAGGED = (1, 127, 128, 129, 1000)  # K1's and K4's counts at their blocks' edges
+
+
+def torsion_coset_rows(points, rng: random.Random):
+    """(4 n, 4, 18) uint32 rows of each point plus each 4-torsion point --
+    (0, 1), (0, -1), (i, 0), (-i, 0): P + (0, -1) = (-X, -Y, Z, T) and
+    P + (+-i, 0) = (+-iY, +-iX, Z, -T) -- every row scaled by a random
+    factor of Z, with the encodings they must give (each point's own; zero
+    for the identity's coset) and the set of (rotate, sign flip) branches of
+    RFC 9496's ENCODE they take, in Python integers."""
+    from xelis_he_tpu_torch.ops.fe import from_ints_np
+    from xelis_he_tpu_torch.pyref import field as pf
+
+    i = pf.SQRT_M1
+    coords, want, branches = [], [], set()
+    for q in points:
+        X, Y, Z, T = q.X, q.Y, q.Z, q.T
+        for c in ((X, Y, Z, T), (-X, -Y, Z, T), (i * Y, i * X, Z, -T), (-i * Y, -i * X, Z, -T)):
+            lam = rng.randrange(2, P)
+            X_, Y_, Z_, T_ = (v * lam % P for v in c)
+            coords += [X_, Y_, Z_, T_]
+            want.append(q.compress())
+            u1, u2 = (Z_ + Y_) * (Z_ - Y_) % P, X_ * Y_ % P
+            _, inv = pf.sqrt_ratio_m1(1, u1 * u2 * u2 % P)
+            z_inv = inv * u1 % P * (inv * u2 % P) % P * T_ % P
+            rotate = pf.is_negative(T_ * z_inv)
+            branches.add((rotate, pf.is_negative((Y_ * i if rotate else X_) * z_inv)))
+    return from_ints_np(coords).reshape(len(want), 4, 18), want, branches
+
+
 def check_kernels(rng: random.Random, device) -> dict:
     """Phase 3; returns {kernel: (mismatches, max_abs_err)}."""
     import numpy as np
@@ -250,9 +285,18 @@ def check_kernels(rng: random.Random, device) -> dict:
     enc = torch.from_numpy(enc_np).to(device)
     rows, valid = K.decompress(enc)
     p_rows, p_valid = K.decompress_plain(enc)
-    errs["decompress"] = worst(expect_equal("K1 rows", rows, p_rows), expect_equal("K1 valid", valid, p_valid))
+    k1_errs = [expect_equal("K1 rows", rows, p_rows), expect_equal("K1 valid", valid, p_valid)]
     if valid.cpu().tolist() != [int(v) for v in ok]:
         raise AssertionError("K1 valid flags disagree with pyref decode")
+    # K1 launches on exactly the caller's count: one block and its edges, and
+    # counts that end inside a block, each holding the edge encodings first
+    edges_first = torch.cat([enc[[i for i in range(4096) if not ok[i] or not enc_np[i].any()]], enc])
+    for n_ in RAGGED:
+        part = edges_first[:n_].contiguous()
+        got, want = K.decompress(part), K.decompress_plain(part)
+        k1_errs += [expect_equal(f"K1 rows, {n_} encodings", got[0], want[0]),
+                    expect_equal(f"K1 valid, {n_} encodings", got[1], want[1])]
+    errs["decompress"] = worst(*k1_errs)
     good = [i for i, v in enumerate(ok) if v]
 
     # K4 on 4096 points: the K1 rows (identities included) and 2048 host
@@ -260,11 +304,26 @@ def check_kernels(rng: random.Random, device) -> dict:
     host = [mul_base(rng.randrange(L)) for _ in range(2048)] + [IDENTITY] * 16
     k4_in = torch.cat([rows[: 4096 - len(host)], dev_rows(host)]).contiguous()
     k4 = K.compress(k4_in)
-    errs["compress"] = expect_equal("K4 bytes", k4, K.compress_plain(k4_in))
+    k4_errs = [expect_equal("K4 bytes", k4, K.compress_plain(k4_in))]
     want = [bytes(enc_np[i]) if ok[i] else bytes(32) for i in range(4096 - len(host))]
     want += [p.compress() for p in host]
     if [bytes(r) for r in k4.cpu().numpy()] != want:
         raise AssertionError("K4 encodings disagree with pyref encode")
+    for n_ in RAGGED:  # K4's blocks hold 32 points: ragged edges inside a block
+        part = k4_in[-n_:].contiguous()
+        k4_errs.append(expect_equal(f"K4 bytes, {n_} points", K.compress(part), K.compress_plain(part)))
+    # each host point plus each 4-torsion point, Z scaled: a coset encodes as
+    # its point, the identity's as zero; both branches of rotate and of the
+    # sign flip occur
+    tors, tors_want, branches = torsion_coset_rows(host[:64] + [IDENTITY], rng)
+    tors = rows_to_device(tors, device)
+    k4_tors = K.compress(tors)
+    k4_errs.append(expect_equal("K4 bytes, 4-torsion cosets", k4_tors, K.compress_plain(tors)))
+    if [bytes(r) for r in k4_tors.cpu().numpy()] != tors_want:
+        raise AssertionError("K4 encodes a 4-torsion coset otherwise than its point")
+    if branches != {(r, f) for r in (False, True) for f in (False, True)}:
+        raise AssertionError(f"K4's edge points miss a branch of its encode: {branches}")
+    errs["compress"] = worst(*k4_errs)
 
     # K2 on 2048 slots: pool points (Z = 1 rows from K1, Z != 1 host rows),
     # edge scalars, zero-digit subs, signature-style (s*H, -e*P) slots
@@ -517,6 +576,14 @@ def main_path(args, accel):
     _, launches, syncs, recorders = counted(lambda: verify_batch(txs, state, accel=accel), DEFAULT_PATH)
     expect_launched("counted verify", launches, DEFAULT_PATH,
                     ("windowed_lanes", "windowed_lanes_k8_fe15", "daa_lanes"))
+    from xelis_he_tpu_torch.tx.verify import _collect_compressed
+
+    n_enc = len(_collect_compressed(txs))
+    k1_n, k4_n = recorders["decompress"].size, recorders["compress"].size
+    log(f"  K1: {launches['decompress']} launch on {k1_n} encodings (the block has {n_enc}); "
+        f"K4: {launches['compress']} launch on {k4_n} points")
+    if launches["decompress"] != 1 or k1_n != n_enc or launches["compress"] != 1:
+        raise AssertionError("K1 must launch once on exactly the block's encodings, and K4 once")
     log(f"  synchronising calls seen: {syncs} (the block's one result pull is expected)")
     if syncs != 1:
         raise AssertionError(f"the default verify made {syncs} synchronising calls, not 1")
@@ -904,12 +971,101 @@ def kernel_line(recorders, launches, errs, clock_hz):
     return rows
 
 
+def ptxas_info(log: str, kernel: str) -> dict:
+    """Registers, stack frame, spill stores and loads, and shared memory of
+    the CUDA function named ``kernel``, from an ``nvcc -Xptxas -v`` log."""
+    lines = log.splitlines()
+    for at, line in enumerate(lines):
+        if "Function properties for" in line and kernel in line.split("for", 1)[1]:
+            info = {}
+            for nxt in lines[at + 1 : at + 4]:
+                m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", nxt)
+                if m:
+                    info["stack"], info["spill_stores"], info["spill_loads"] = map(int, m.groups())
+                m = re.search(r"Used (\d+) registers", nxt)
+                if m:
+                    info["registers"] = int(m.group(1))
+                    sm = re.search(r"(\d+) bytes smem", nxt)
+                    info["smem"] = int(sm.group(1)) if sm else 0
+            return info
+    raise RuntimeError(f"ptxas reported nothing for {kernel}")
+
+
+def resident_blocks(regs: int, threads: int, smem: int = 0) -> int:
+    """Blocks of ``threads`` an SM can hold at ``regs`` registers a thread
+    (allocated 256 a warp) and ``smem`` bytes of shared memory a block (1 KB
+    more reserved), within 2,048 threads and 32 blocks an SM."""
+    warp_regs = -(-regs * 32 // 256) * 256
+    warps = -(-threads // 32)
+    return min(65536 // (warp_regs * warps), 2048 // threads, 32, 233472 // (smem + 1024))
+
+
+SASS_CLASSES = ("IMAD.WIDE", "IMAD", "IADD3", "SHF", "LOP3")
+
+
+def sass_loop_mix(lib: pathlib.Path, kernel: str) -> dict:
+    """Instruction count by class of one fe_sq of kernel ``kernel`` in the
+    built library ``lib``: fe_sqn's loops (``#pragma unroll 1``) each hold one
+    squaring and the loop's own test, so the body that occurs most often
+    among the innermost loops of the kernel's SASS (cuobjdump) is one fe_sq."""
+    import collections
+    import shutil
+
+    tool = shutil.which("cuobjdump") or os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                                                     "bin", "cuobjdump")
+    text = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    funcs = re.split(r"\n\s*Function : ", text)
+    body = next((f for f in funcs[1:] if kernel in f.split("\n", 1)[0]), None)
+    if body is None:
+        raise RuntimeError(f"cuobjdump shows no function {kernel} in {lib}")
+    insns, labels, pending = [], {}, []
+    for line in body.splitlines():
+        m = re.match(r"\s*(\.L_x_\d+):", line)
+        if m:
+            pending.append(m.group(1))
+            continue
+        m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+        if m:
+            addr = int(m.group(1), 16)
+            for lab in pending:
+                labels[lab] = addr
+            pending = []
+            insns.append((addr, re.sub(r"^@!?U?P\w+\s+", "", m.group(2))))
+    loops = []
+    for addr, ins in insns:
+        if not ins.startswith("BRA"):
+            continue
+        m = re.search(r"\((\.L_x_\d+)\)", ins) or re.search(r"(0x[0-9a-f]+)", ins)
+        target = labels.get(m.group(1)) if m and m.group(1).startswith(".L") else (int(m.group(1), 16) if m else None)
+        if target is not None and target <= addr:
+            loops.append((target, addr))
+    inner = [(a, b) for a, b in loops if not any(a <= c and d <= b and (c, d) != (a, b) for c, d in loops)]
+    if not inner:
+        raise RuntimeError(f"no loop in the SASS of {kernel}")
+    bodies = [[ins.split()[0] for addr, ins in insns if a <= addr <= b] for a, b in inner]
+    length = collections.Counter(len(x) for x in bodies).most_common(1)[0][0]
+    ops = next(x for x in bodies if len(x) == length)
+    mix = {c: 0 for c in SASS_CLASSES}
+    for op in ops:
+        cls = next((c for c in SASS_CLASSES if op.startswith(c)), "other")
+        mix[cls] = mix.get(cls, 0) + 1
+    mix["total"] = len(ops)
+    mix["loops_alike"] = sum(len(x) == length for x in bodies)
+    return mix
+
+
 def kernels_from(root: pathlib.Path, seed: int) -> dict:
-    """K2 and K3 of the port checked out at ``root``: device time and call
-    time (over 100 calls back to back) at the main path's largest shapes (7,936 slots; 6,656 rows in tiles
-    of 512) and at a ``sum_points`` shape (32 rows in tiles of 16), on points
-    from K1 and digits of random scalars made from ``seed``; with a digest of
-    the K2 slot sums' encodings, which any two commits must share."""
+    """The kernels of the port checked out at ``root``, at the main path's
+    largest shapes: K1 at 290,002 encodings, K2 at 7,936 slots, K3 at 6,656
+    rows in tiles of 512 and at a ``sum_points`` shape (32 rows in tiles of
+    16), K4 at 10,242 points, K5 at 49,152 lanes and K7 at 512 lanes.  Device
+    time and call time (over 100 calls back to back) of each, on inputs made
+    from ``seed`` (points from 1,024 valid encodings through K1, K4's from
+    K2's slot sums, so Z != 1), with a digest of each kernel's output (K1's
+    rows and flags, K4's bytes, the others' sums encoded by the running
+    tree's K4), which any two commits must share; and ptxas's figures and
+    one fe_sq's SASS instruction mix of K1 and K4 as that tree builds them."""
     import hashlib
 
     import numpy as np
@@ -923,30 +1079,60 @@ def kernels_from(root: pathlib.Path, seed: int) -> dict:
 
     if not pathlib.Path(K.__file__).resolve().is_relative_to(root.resolve()):
         raise RuntimeError(f"imported {K.__file__}, not the port at {root}")
-    _build.build_all()
+    lib_dir = _build.build_all()
     device = torch.device("cuda")
     rng = random.Random(seed)
     gen = torch.Generator(device).manual_seed(seed)
+
+    def pick(src, n):
+        return src[torch.randint(0, src.shape[0], (n,), device=device, generator=gen)].contiguous()
+
+    def scalars(n):
+        raw = b"".join(rng.randrange(L).to_bytes(32, "little") for _ in range(n))
+        return torch.from_numpy(np.frombuffer(raw, np.uint8).reshape(n, 32).copy()).to(device)
+
+    def digest(t):
+        return hashlib.sha256(t.contiguous().cpu().numpy().tobytes()).hexdigest()[:16]
+
     encs = b"".join(mul_base(rng.randrange(1, L)).compress() for _ in range(1024))
-    pool, valid = K.decompress(torch.from_numpy(np.frombuffer(encs, np.uint8).reshape(-1, 32).copy()).to(device))
+    enc_pool = torch.from_numpy(np.frombuffer(encs, np.uint8).reshape(-1, 32).copy()).to(device)
+    pool, valid = K.decompress(enc_pool)
     if not bool(valid.all()):
         raise AssertionError("K1 rejected a valid encoding")
     S = 7936
-    pts = pool[torch.randint(0, 1024, (8 * S,), device=device, generator=gen)].reshape(8, S, 4, 18).contiguous()
-    raw = b"".join(rng.randrange(L).to_bytes(32, "little") for _ in range(8 * S))
-    scal = torch.from_numpy(np.frombuffer(raw, np.uint8).reshape(8 * S, 32).copy()).to(device)
-    dig = K.recode_signed4_torch(scal).reshape(64, 8, S).permute(1, 0, 2).contiguous()
-    out = {"kernels_from": str(root)}
+    pts = pick(pool, 8 * S).reshape(8, S, 4, 18).contiguous()
+    dig = K.recode_signed4_torch(scalars(8 * S)).reshape(64, 8, S).permute(1, 0, 2).contiguous()
+    k1_in = pick(enc_pool, 290_002)
     k2 = K.windowed_lanes_k8(pts, dig)
-    out["k2_digest"] = hashlib.sha256(K.compress(k2).cpu().numpy().tobytes()).hexdigest()[:16]
-    cases = [("windowed_lanes_k8", f"{S} slots", lambda: K.windowed_lanes_k8(pts, dig))]
-    for n, tile in ((6656, 512), (32, 16)):
-        rows = pool[torch.randint(0, 1024, (n,), device=device, generator=gen)].contiguous()
-        cases.append(("tile_sums", f"{n} rows, tile {tile}", lambda rows=rows, tile=tile: K.tile_sums(rows, tile)))
+    k4_in = pick(k2, 10_242)
+    k5_pts, k5_dig = pick(pool, 49_152), K.recode_signed4_torch(scalars(49_152))
+    k7_pts, k7_bits = pick(pool, 512), K.pack_bits_torch(scalars(512))
+    k3_in = {(n, tile): pick(pool, n) for n, tile in ((6656, 512), (32, 16))}
+    cases = [
+        ("decompress", "290002 encodings", lambda: K.decompress(k1_in)),
+        ("windowed_lanes_k8", f"{S} slots", lambda: K.windowed_lanes_k8(pts, dig)),
+        *((("tile_sums", f"{n} rows, tile {tile}", lambda rows=rows, tile=tile: K.tile_sums(rows, tile))
+           for (n, tile), rows in k3_in.items())),
+        ("compress", "10242 points", lambda: K.compress(k4_in)),
+        ("windowed_lanes", "49152 lanes", lambda: K.windowed_lanes(k5_pts, k5_dig)),
+        ("daa_lanes", "512 lanes", lambda: K.daa_lanes(k7_pts, k7_bits)),
+    ]
+    out = {"kernels_from": str(root)}
     for name, shape, fn in cases:
-        fn()
-        out[f"{name} at {shape}"] = {"ms": device_ms(fn, KERNELS[name][2]), "call_ms": call_ms(fn, 100)}
+        res = fn()
+        if name == "decompress":
+            d = digest(torch.cat([res[0].reshape(-1, 72), res[1][:, None].to(torch.int32)], dim=1))
+        elif name == "compress":
+            d = digest(res)
+        else:
+            d = digest(K.compress(res))
+        out[f"{name} at {shape}"] = {"ms": device_ms(fn, KERNELS[name][2]), "call_ms": call_ms(fn, 100), "digest": d}
     torch.cuda.synchronize()
+    for name in ("decompress", "compress"):
+        fn_name = KERNELS[name][2]
+        # ptxas speaks only when this process compiled the library
+        info = ptxas_info(_build.ptxas_log[name], fn_name) if name in _build.ptxas_log else {}
+        out[f"{name} build"] = {**info, "fe_sq_sass": sass_loop_mix(lib_dir / f"lib{name}.so", fn_name)}
     return out
 
 
@@ -956,7 +1142,7 @@ def main() -> int:
     ap.add_argument("--iters", type=int, default=3, help="timed verifies of the block")
     ap.add_argument("--seed", type=int, default=1, help="seed of the kernel inputs")
     ap.add_argument("--kernels-from", type=pathlib.Path, default=None, metavar="DIR",
-                    help="only time K2 and K3 of the port checked out at DIR")
+                    help="only time K1-K5 and K7 of the port checked out at DIR")
     args = ap.parse_args()
 
     import torch
@@ -978,6 +1164,8 @@ def main() -> int:
     from xelis_he_tpu_torch.ops import _build
     from xelis_he_tpu_torch.ops.accel import Accelerator
 
+    from xelis_he_tpu_torch.ops import kernels as K
+
     _build.build_all()
     log(f"build: {_build.build_seconds:.1f} s")
     (OUT / "ptxas.txt").write_text("\n".join(f"== {k}\n{v}" for k, v in _build.ptxas_log.items()))
@@ -985,6 +1173,15 @@ def main() -> int:
         for line in v.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  {k}: {line.strip()}")
+    # K1 and K4 buy resident warps with registers: their figures, and no spills
+    builds = {}
+    for name, threads in (("decompress", 128), ("compress", 128)):
+        info = ptxas_info(_build.ptxas_log[name], KERNELS[name][2])
+        info["resident_blocks"] = resident_blocks(info["registers"], threads, info["smem"])
+        log(f"  {name}: {json.dumps(info)} at {threads} threads a block")
+        if info["spill_stores"] or info["spill_loads"]:
+            raise AssertionError(f"{name}: ptxas spills registers")
+        builds[name] = info
 
     log("kernels vs plain (edge cases):")
     errs = check_kernels(random.Random(args.seed), device)
@@ -1006,6 +1203,9 @@ def main() -> int:
 
     log("kernel times at each kernel's largest launch on its path:")
     rows = kernel_line(recorders, launches, errs, clock_hz)
+    for r in rows:
+        if r["name"] in builds:
+            r["build"] = builds[r["name"]]
     log("trace of one verify:")
     trace = trace_verify(*block, accel)
     print(json.dumps({"kernels": rows, "txs": args.txs, **per_tx, "trace": trace}), flush=True)

@@ -189,7 +189,7 @@ def test_block_context_matches_numpy_accelerator(accel, jax_accel):
         blk, jax_blk = accel._block_state(), jax_accel._block_state()
         assert blk.index == jax_blk.index == {e: i for i, e in enumerate(encs[:n_good])}
         assert accel.block_valid_flags() == jax_accel.block_valid_flags() == valid
-        assert accel.block_row_base() == 128  # the padded lane count
+        assert accel.block_row_base() == len(encs)  # K1 runs on the block's real count
         accel.begin_block_async(encs)
         assert accel._block_state().index == {e: i for i, e in enumerate(encs)}  # before the pull: every row
         assert accel.begin_block_wait()[1] == valid
@@ -200,6 +200,33 @@ def test_block_context_matches_numpy_accelerator(accel, jax_accel):
         accel.end_block()
         jax_accel.end_block()
     assert accel._block_state().index == {} and accel._block_state().rows is None
+
+
+@pytest.mark.parametrize("n", [1, 3, 129])
+def test_k1_and_k4_receive_exactly_the_real_count(accel, monkeypatch, n):
+    """The block context, decompress_many_lazy and compress_many hand K1 and
+    K4 exactly their n rows: no padding to a lane granule."""
+    from xelis_he_tpu_torch.ops import kernels as K
+
+    seen = []
+    for name in ("decompress", "compress"):
+        def spy(t, name=name, fn=getattr(K, name)):
+            seen.append((name, t.shape[0]))
+            return fn(t)
+
+        monkeypatch.setattr(K, name, spy)
+    pts = [mul_base(s) for s in range(1, 4)] * (n // 3 + 1)
+    encs = [p.compress() for p in pts[:n]]
+    rows = np.frombuffer(bytearray(b"".join(encs)), np.uint8).reshape(n, 32)
+    try:
+        accel.begin_block_async_rows(rows)
+        assert accel.block_row_base() == n
+        assert accel.begin_block_wait()[1] == [True] * n
+    finally:
+        accel.end_block()
+    assert accel.decompress_many_lazy(encs)[1] == [True] * n
+    assert accel.compress_many(pts[:n]) == encs
+    assert seen == [("decompress", n), ("decompress", n), ("compress", n)]
 
 
 def test_methods_that_still_wait_name_their_roadmap_item(accel):

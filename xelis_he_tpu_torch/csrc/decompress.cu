@@ -5,10 +5,18 @@
 // encoding reads its 32 bytes and writes canonical (X, Y, 1, T) rows plus a
 // valid flag; invalid encodings give the identity (0, 1, 1, 0).
 //
-// Bound: operations.  Each encoding costs one inverse square root (~250
-// squarings) against 32 bytes in and 289 bytes out, so the kernel is
-// compute-bound on 32-bit multiply-adds; one thread per encoding keeps the
-// whole chain in registers with no shared memory and no synchronisation.
+// Bound: operations, reached only as far as latency allows.  Each encoding
+// costs one inverse square root (~250 squarings) against 32 bytes in and
+// 289 bytes out.  Each thread's chain is serial, so the card nears its issue
+// rate only with several warps a scheduler to interleave: at 194 registers
+// (2 blocks of 128 an SM, 2 warps a scheduler) the kernel reached half its
+// bound.  decompress_one now holds only the chain's value over the chain and
+// recomputes the rest from the encoding after it, and __launch_bounds__
+// caps the registers at 128 (K1_MIN_BLOCKS = 4 blocks an SM, 4 warps a
+// scheduler) with no spills.  3 blocks, and the parallel carry
+// (fe_reduce64_par, ~10 more instructions a field operation) at 3 or 4
+// blocks, were slower (PERF.md, kernel_variants.py).  The wrapper launches
+// exactly the caller's encodings; the last block masks its ragged edge.
 
 #include <cuda_runtime.h>
 
@@ -16,16 +24,13 @@
 
 using namespace xhe;
 
-__global__ void __launch_bounds__(128)
+__global__ void __launch_bounds__(128, K1_MIN_BLOCKS)
     decompress_kernel(const uint8_t *__restrict__ enc, int32_t *__restrict__ rows,
                       uint8_t *__restrict__ valid, int n) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  alignas(16) uint8_t b[32];
-  const uint4 *src = reinterpret_cast<const uint4 *>(enc + 32 * (size_t)i);
-  *reinterpret_cast<uint4 *>(b) = src[0];
-  *reinterpret_cast<uint4 *>(b + 16) = src[1];
-  const bool ok = decompress_one(rows + 72 * (size_t)i, b);
+  fe_ops_c<K1_PAR_CARRY> m;
+  const bool ok = decompress_one(rows + 72 * (size_t)i, reinterpret_cast<const uint32_t *>(enc + 32 * (size_t)i), m);
   valid[i] = ok ? 1 : 0;
 }
 

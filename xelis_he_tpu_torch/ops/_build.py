@@ -75,6 +75,9 @@ def build_all() -> pathlib.Path:
     for name in KERNELS:
         lib = out / f"lib{name}.so"
         if lib.exists():
+            saved = out / f"{name}.ptxas.txt"  # ptxas's report of the build that made it
+            if saved.exists():
+                ptxas_log[name] = saved.read_text()
             continue
         nvcc = nvcc or _nvcc()
         tmp = out / f".lib{name}.{os.getpid()}.so"
@@ -88,6 +91,7 @@ def build_all() -> pathlib.Path:
             tmp.unlink(missing_ok=True)
             failed.append(f"{name}.cu (rc {proc.returncode}):\n{log}")
         else:
+            (out / f"{name}.ptxas.txt").write_text(log)
             os.replace(tmp, lib)  # atomic: concurrent builders never load a partial file
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))

@@ -195,8 +195,9 @@ class Accelerator:
         return self.tile, max(1, self.tile // 2)
 
     def _lane_granule(self, n: int) -> int:
-        """Padded decompression lane count (zero encodings = the identity,
-        valid): power-of-two buckets with a 3/4 step."""
+        """Padded lane count of a generic MSM (``_msm_rows``; pad lanes hold
+        the identity with zero scalars): power-of-two buckets with a 3/4
+        step, so that large counts fill whole packed tiles."""
         if n <= 128:
             return 128
         p2 = max(self.tile, _next_pow2(n))
@@ -244,17 +245,15 @@ class Accelerator:
         blk.encodings = []
         blk.index = {}
 
-    def _decompress_padded(self, enc_rows: _np.ndarray):
-        """(n, 32) uint8 encodings, zero-padded to the lane granule (zero is
-        the identity's encoding, valid) -> K1's device (rows, valid)."""
-        n = int(enc_rows.shape[0])
-        data = _np.zeros((self._lane_granule(n), 32), dtype=_np.uint8)
-        data[:n] = enc_rows
-        return K.decompress(to_device(data, self.device))
+    def _decompress(self, enc_rows: _np.ndarray):
+        """(n, 32) uint8 encodings -> K1's device (rows, valid), launched on
+        exactly the n encodings (the kernel masks its ragged edge)."""
+        return K.decompress(to_device(enc_rows, self.device))
 
     @staticmethod
     def _encoding_rows(encodings) -> _np.ndarray:
-        return _np.frombuffer(b"".join(encodings), dtype=_np.uint8).reshape(len(encodings), 32)
+        # writable (bytearray): torch.from_numpy warns on a read-only buffer
+        return _np.frombuffer(bytearray(b"".join(encodings)), dtype=_np.uint8).reshape(len(encodings), 32)
 
     def begin_block_async_rows(self, enc_rows: _np.ndarray) -> None:
         """Upload the block's (n, 32) uint8 encodings and decompress them
@@ -266,7 +265,7 @@ class Accelerator:
         if n == 0:
             self._clear_block(blk)
             return
-        blk.rows, blk.valid = self._decompress_padded(enc_rows)
+        blk.rows, blk.valid = self._decompress(enc_rows)
         blk.n = n
         blk.pending = True
         blk.encodings = _LazyEncodings(enc_rows)
@@ -282,7 +281,7 @@ class Accelerator:
         if not encodings:
             self._clear_block(blk)
             return
-        blk.rows, blk.valid = self._decompress_padded(self._encoding_rows(encodings))
+        blk.rows, blk.valid = self._decompress(self._encoding_rows(encodings))
         blk.n = len(encodings)
         blk.pending = True
         blk.encodings = encodings
@@ -787,7 +786,7 @@ class Accelerator:
         Rows of invalid encodings hold the identity."""
         if not encodings:
             return _np.zeros((0, 4, NLIMBS), dtype=_np.uint32), []
-        rows, valid = self._decompress_padded(self._encoding_rows(encodings))
+        rows, valid = self._decompress(self._encoding_rows(encodings))
         return self._pull_decompressed(rows, valid, len(encodings))
 
     def decompress_many(self, encodings: list[bytes]):
@@ -801,7 +800,7 @@ class Accelerator:
         if not points:
             return []
         n = len(points)
-        enc = K.compress(self._to_device_points(list(points), self._lane_granule(n))).cpu().numpy()
+        enc = K.compress(self._to_device_points(list(points))).cpu().numpy()
         return [bytes(enc[i]) for i in range(n)]
 
     # -- outside this slice of the port ----------------------------------------

@@ -42,6 +42,7 @@ K2_SPLIT = 2  # threads a slot of K2 (csrc/ed25519.cuh K2_SPLIT)
 K2_TABLE = 9  # niels entries a sub of K2, 0P..8P (its scratch: K_PACK x K2_TABLE a slot)
 TILE = 512  # lanes per tile of K3
 K3_SUB = 64  # rows a block of K3 reduces (csrc/ed25519.cuh K3_SUB)
+K4_GROUP = 1  # threads a point of K4 (csrc/ed25519.cuh K4_GROUP)
 GE_WORDS = 40  # 32-bit words of a point or niels entry in the kernels' radix 2^25.5
 QTILE = 256  # slot granule of the signature lanes
 N_WINDOWS = 64  # signed 4-bit windows of a scalar < 2^253
@@ -95,6 +96,20 @@ def k2_executed(split: int = K2_SPLIT) -> tuple[int, int]:
     extra = split - 1
     return (FIELD_MULS["windowed_lanes_k8"] + extra * (K2_DOUBLING_MULS + FIELD_MULS["tile_sums"]),
             FIELD_SQS["windowed_lanes_k8"] + extra * K2_DOUBLING_SQS)
+
+
+# What K1 executes an encoding: the function's work, and the values it
+# recomputes instead of holding them in registers: s^2, u2^2, d u1^2, the
+# ratio's denominator t and t^3 after the inverse square root's chain, and
+# s^2, u2^2 and d u1^2 again after the square root's checks (5 squarings
+# and 6 multiplications; csrc/ed25519.cuh decompress_one).  The bound keeps
+# the function's count.
+K1_RECOMPUTED_MULS, K1_RECOMPUTED_SQS = 6, 5
+
+
+def k1_executed() -> tuple[int, int]:
+    """(field multiplications, squarings) K1 executes an encoding."""
+    return FIELD_MULS["decompress"] + K1_RECOMPUTED_MULS, FIELD_SQS["decompress"] + K1_RECOMPUTED_SQS
 
 
 def muladds(name: str, items: int, set_bits: int = 0) -> int:
