@@ -49,7 +49,7 @@ EDITS = {
     ],
 }
 
-SOURCES = sorted(p.relative_to(REPO).as_posix() for p in PORT.rglob("*.py")) + ["chip_smoke.py", "kernel_variants.py"]
+SOURCES = sorted(p.relative_to(REPO).as_posix() for p in PORT.rglob("*.py")) + ["chip_smoke.py"]
 COPIES = sorted(
     p.relative_to(PORT).as_posix()
     for pattern in ("*.py", "*.cpp", "*.inc")

@@ -462,7 +462,7 @@ def shim(tmp_path_factory):
     )
     lib = ctypes.CDLL(str(out))
     vp, i = ctypes.c_void_p, ctypes.c_int
-    lib.shim_decompress.argtypes = [vp, vp, vp, i, i]
+    lib.shim_decompress.argtypes = [vp, vp, vp, i]
     lib.shim_compress.argtypes = [vp, vp, i]
     lib.shim_windowed_lanes_k8.argtypes = [vp, vp, vp, i]
     lib.shim_tile_sums.argtypes = [vp, vp, i, i]
@@ -471,12 +471,7 @@ def shim(tmp_path_factory):
     lib.shim_daa_lanes.argtypes = [vp, vp, vp, i]
     lib.shim_fe15.argtypes = [vp, vp, vp, vp, vp, i]
     lib.shim_square.argtypes = [vp, vp, vp, i]
-    lib.shim_compress_coop.argtypes = [vp, vp, i, i, i]
-    lib.shim_compress_coop.restype = i
-    lib.shim_reduce64_par.argtypes = [vp, vp, i]
-    lib.shim_k4_group.restype = i
-    lib.shim_k1_par_carry.restype = i
-    lib.shim_k4_par_carry.restype = i
+    lib.shim_reduce64.argtypes = [vp, vp, i]
     lib.shim_k2_split.restype = i
     lib.shim_k3_sub.restype = i
     lib.shim_mul_count.restype = ctypes.c_ulonglong
@@ -509,20 +504,17 @@ def test_cuh_square_equals_mul_by_itself(shim):
 
 
 def test_cuh_decompress_matches_jax_curve(shim, jax_decoded):
-    """K1's body with either carry (decompress.cu compiles the serial one)."""
-    assert shim.shim_k1_par_carry() == 0
     n = ENC.shape[0]
+    rows = np.zeros((n, 4, 18), np.int32)
+    valid = np.zeros(n, np.uint8)
+    shim.shim_reset_mul_count()
+    shim.shim_decompress(_ptr(ENC), _ptr(rows), _ptr(valid), n)
     want_rows, want_valid = jax_decoded
-    for par in (0, 1):
-        rows = np.zeros((n, 4, 18), np.int32)
-        valid = np.zeros(n, np.uint8)
-        shim.shim_reset_mul_count()
-        shim.shim_decompress(_ptr(ENC), _ptr(rows), _ptr(valid), n, par)
-        assert valid.tolist() == want_valid.astype(np.uint8).tolist()
-        assert np.array_equal(rows, want_rows)
-        # what K1 executes: the function's work and the values it recomputes
-        muls, sqs = K.k1_executed()
-        assert _counts(shim) == (muls * n, sqs * n)
+    assert valid.tolist() == want_valid.astype(np.uint8).tolist()
+    assert np.array_equal(rows, want_rows)
+    # what K1 executes: the function's work and the values it recomputes
+    muls, sqs = K.k1_executed()
+    assert _counts(shim) == (muls * n, sqs * n)
 
 
 def test_cuh_compress_matches_jax_curve(shim, k4_input, jax_encoded):
@@ -550,23 +542,22 @@ def _max_columns():
 
 
 def test_cuh_carry_matches_python_integers(shim):
-    """fe_reduce64_par (two rounds of parallel carries) against Python integers:
-    the value mod p is kept, and every limb ends below 2^w + 2^15 (the bound
-    its comment proves; fe_mul's inputs may reach 2^w + 2^17), on random
-    columns below 2^59 and on the largest columns fe_mul can make."""
+    """fe_reduce64 against Python integers: the value mod p is kept, limbs 0
+    and 2-9 end exact and limb 1 below 2^25 + 2^17 (the header's carried-limb
+    bound, on which fe_mul's column bound rests), on random columns below
+    2^62 and on the largest columns fe_mul can make."""
     rng = np.random.default_rng(64)
-    cols = rng.integers(0, 1 << 59, (1024, 10), dtype=np.uint64)
+    cols = rng.integers(0, 1 << 62, (1024, 10), dtype=np.uint64)
     cols[0] = np.array(_max_columns(), dtype=np.uint64)
-    cols[1] = (1 << 59) - 1
+    cols[1] = (1 << 62) - 1
     cols[2] = 0
     cols[3] = [(1 << w) - 1 for w in WIDTHS]
     out = np.zeros((cols.shape[0], 10), np.uint32)
-    shim.shim_reduce64_par(_ptr(np.ascontiguousarray(cols)), _ptr(out), cols.shape[0])
+    shim.shim_reduce64(_ptr(np.ascontiguousarray(cols)), _ptr(out), cols.shape[0])
     for c, h in zip(cols.tolist(), out.tolist()):
         assert sum(v << o for v, o in zip(c, OFFSETS)) % P == sum(v << o for v, o in zip(h, OFFSETS)) % P
     excess = out.astype(np.int64) - (np.int64(1) << np.array(WIDTHS, np.int64))
-    assert excess.max() < 1 << 15
-    assert excess[0].max() <= 645  # the largest columns: 645 above 2^26 on limb 0
+    assert excess[:, [0, *range(2, 10)]].max() < 0 and excess[:, 1].max() < 1 << 17
     assert np.array_equal(out[3], cols[3].astype(np.uint32))  # exact limbs pass unchanged
 
 
@@ -603,28 +594,18 @@ def _encode_branches(rows):
     return out
 
 
-@pytest.mark.parametrize("group", [1, 2, 4])
-def test_cuh_cooperative_compress_matches_compress_one(shim, k4_input, group):
-    """K4's products split over ``group`` threads (each thread's share of the
-    columns, then the exchange, then every thread's carry, either carry)
-    give compress_one's bytes, on k4_input and on the 4-torsion edge points,
-    where a point and its coset encode alike and the identity's coset as
-    zero."""
-    assert shim.shim_k4_group() == K.K4_GROUP and shim.shim_k4_par_carry() == 0
+@pytest.mark.parametrize("torsion", range(4))
+def test_cuh_compress_encodes_4_torsion_cosets_alike(shim, torsion):
+    """K4's body on each host point plus the 4-torsion point ``torsion``
+    (coordinates scaled by a random Z): the coset encodes as its point, the
+    identity's as zero.  The edge set as a whole takes both branches of
+    rotate and of the sign flip."""
     tors, tors_pts = _torsion_rows()
     assert {b for b in _encode_branches(tors)} == {(r, f) for r in (False, True) for f in (False, True)}
-    rows = np.ascontiguousarray(np.concatenate([k4_input.view(np.int32), tors]))
-    n = rows.shape[0]
-    one = np.zeros((n, 32), np.uint8)
-    shim.shim_compress(_ptr(rows), _ptr(one), n)
-    assert [bytes(r) for r in one[-len(tors_pts):]] == _enc(tors_pts)
-    for par in (0, 1):  # either carry
-        coop = np.zeros((n, 32), np.uint8)
-        shim.shim_reset_mul_count()
-        assert shim.shim_compress_coop(_ptr(rows), _ptr(coop), n, group, par) == 0
-        # each operation once for the group: the function's work
-        assert _counts(shim) == (K.FIELD_MULS["compress"] * n, K.FIELD_SQS["compress"] * n)
-        assert np.array_equal(coop, one)
+    rows = np.ascontiguousarray(tors[torsion::4])
+    out = np.zeros((rows.shape[0], 32), np.uint8)
+    shim.shim_compress(_ptr(rows), _ptr(out), rows.shape[0])
+    assert [bytes(r) for r in out] == _enc(tors_pts[torsion::4])
 
 
 def test_cuh_windowed_lanes_matches_fe13_helpers_and_pyref(shim, fe13_reference, k2_plain_rows):

@@ -9,75 +9,32 @@
 
 using namespace xhe;
 
-// K4's cooperative products as compress.cu runs them, the T threads of a
-// point in lockstep: each thread's share of the columns, then the exchange
-// (every thread gets all ten sums), then the carry, which all T run alike
-template <int T, bool PAR>
-struct host_coop_ops {
-  void mul(fe &h, const fe &f, const fe &g) {
-    XHE_COUNT_MUL();
-    uint64_t t[10];
-    for (int j = 0; j < T; ++j) fe_mul_part(t, f, g, j, T);
-    fe_reduce<PAR>(h, t);
-  }
-  void sq(fe &h, const fe &f) {
-    XHE_COUNT_SQ();
-    uint64_t t[10];
-    for (int j = 0; j < T; ++j) fe_sq_part(t, f, j, T);
-    fe_reduce<PAR>(h, t);
-  }
-};
-
-template <int T, bool PAR>
-static void compress_coop(const int32_t *rows, uint8_t *out, int n) {
-  host_coop_ops<T, PAR> m;
-  for (int i = 0; i < n; ++i) compress_point(out + 32 * i, rows + 72 * i, m);
-}
-
 extern "C" {
 
-// K1 with either carry (par: fe_reduce64_par); decompress.cu compiles K1_PAR_CARRY's
-void shim_decompress(const uint8_t *enc, int32_t *rows, uint8_t *valid, int n, int par) {
+// K1's body on n encodings of 32 bytes, handed over as decompress.cu reads
+// them: eight little-endian words each
+void shim_decompress(const uint8_t *enc, int32_t *rows, uint8_t *valid, int n) {
   for (int i = 0; i < n; ++i) {
     uint32_t w[8];
     for (int k = 0; k < 8; ++k) {
       const uint8_t *b = enc + 32 * i + 4 * k;
       w[k] = b[0] | (uint32_t)b[1] << 8 | (uint32_t)b[2] << 16 | (uint32_t)b[3] << 24;
     }
-    fe_ops_c<true> with_par;
-    fe_ops_c<false> serial;
-    valid[i] = (par ? decompress_one(rows + 72 * i, w, with_par) : decompress_one(rows + 72 * i, w, serial)) ? 1 : 0;
+    valid[i] = decompress_one(rows + 72 * i, w) ? 1 : 0;
   }
 }
-
-int shim_k1_par_carry(void) { return K1_PAR_CARRY; }
 
 void shim_compress(const int32_t *rows, uint8_t *out, int n) {
   for (int i = 0; i < n; ++i) compress_one(out + 32 * i, rows + 72 * i);
 }
 
-// K4 at T threads a point with either carry (par: fe_reduce64_par)
-int shim_compress_coop(const int32_t *rows, uint8_t *out, int n, int T, int par) {
-  switch (T * 2 + (par ? 1 : 0)) {
-    case 2: compress_coop<1, false>(rows, out, n); return 0;
-    case 3: compress_coop<1, true>(rows, out, n); return 0;
-    case 4: compress_coop<2, false>(rows, out, n); return 0;
-    case 5: compress_coop<2, true>(rows, out, n); return 0;
-    case 8: compress_coop<4, false>(rows, out, n); return 0;
-    case 9: compress_coop<4, true>(rows, out, n); return 0;
-  }
-  return -1;
-}
-
-int shim_k4_group(void) { return K4_GROUP; }
-
-int shim_k4_par_carry(void) { return K4_PAR_CARRY; }
-
-// fe_reduce64_par on n rows of ten 64-bit column sums -> n limb vectors
-void shim_reduce64_par(const uint64_t *t, uint32_t *out, int n) {
+// fe_reduce64 on n rows of ten 64-bit column sums -> n limb vectors
+void shim_reduce64(const uint64_t *t, uint32_t *out, int n) {
   for (int i = 0; i < n; ++i) {
+    uint64_t cols[10];
+    for (int k = 0; k < 10; ++k) cols[k] = t[10 * i + k];
     fe h;
-    fe_reduce64_par(h, t + 10 * i);
+    fe_reduce64(h, cols);
     for (int k = 0; k < 10; ++k) out[10 * i + k] = h.v[k];
   }
 }

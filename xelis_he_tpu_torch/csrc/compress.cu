@@ -12,19 +12,11 @@
 // waits on its own chain (~540 cycles a field operation).  More or smaller
 // blocks change nothing; only a shorter chain a point would.
 //
-// K4_GROUP = T > 1 spreads a point over T threads, one in each of T warps
-// (lane l of each holds the same point): each field multiplication or
-// squaring computes a share of the ten column sums in each warp
-// (fe_mul_part / fe_sq_part, at constant bounds), the shares meet in shared
-// memory behind one __syncthreads, and every warp carries the columns
-// itself, so all hold the same limbs and run the rest alike.  The group
-// spans warps, not lanes of one warp: lanes taking different columns would
-// run one after the other.  On the H100 it loses to one thread a point (T =
-// 2 and 4, either carry: PERF.md, kernel_variants.py): the exchange and the
-// carry every warp repeats cost more than the products it splits.  So the
-// build compiles T = 1, the one-thread body of before, and T > 1 stays
-// compilable for the small launches the cooperative arithmetic may serve
-// next (K7, ROADMAP).
+// A point spread over 2 or 4 warps (each warp a share of every product's
+// column sums, exchanged through shared memory behind one __syncthreads, each
+// warp carrying them itself) lost to this one-thread body on the H100: the
+// exchange and the carry each warp repeats cost more than the products they
+// split (PERF.md, PR 4).  So each point stays one thread (T = 1).
 
 #include <cuda_runtime.h>
 
@@ -32,91 +24,20 @@
 
 using namespace xhe;
 
-// K4's cooperative products for warp J of a point's group of T: its share
-// of the columns (fe_mul_part / fe_sq_part, at constant bounds, so the
-// warp's products are straight-line code), the exchange, and the carry.
-template <int T, int J>
-struct coop_ops {
-  uint64_t (*buf)[10][32];  // [2][10][32] in shared memory, double-buffered
-  int lane, phase;
-
-  // __host__ too only so that nvcc's host pass of the templated point
-  // functions can name these; they run on the device alone
-  __host__ __device__ __forceinline__ void exchange(uint64_t t[10]) {
-#ifdef __CUDA_ARCH__
-    if (T == 1) return;
-#pragma unroll
-    for (int k = coop_col(J, T); k < coop_col(J + 1, T); ++k) buf[phase][k][lane] = t[k];
-    // one barrier an operation: the buffer written next was last read
-    // before every warp passed this barrier's predecessor
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < 10; ++k) t[k] = buf[phase][k][lane];
-    phase ^= 1;
-#endif
-  }
-  __host__ __device__ __forceinline__ void mul(fe &h, const fe &f, const fe &g) {
-    uint64_t t[10];
-    fe_mul_part(t, f, g, J, T);
-    exchange(t);
-    fe_reduce<K4_PAR_CARRY>(h, t);
-  }
-  __host__ __device__ __forceinline__ void sq(fe &h, const fe &f) {
-    uint64_t t[10];
-    fe_sq_part(t, f, J, T);
-    exchange(t);
-    fe_reduce<K4_PAR_CARRY>(h, t);
-  }
-};
-
-// Blocks of 128 threads: with T = K4_GROUP > 1 the block's 4 / T groups of
-// T warps encode 32 points each, warp g T + J being thread J of group g's
-// points.  Past the
-// ragged edge a lane encodes point n - 1 again and stores nothing, since
-// every warp must reach every barrier.
-template <int J>
-__device__ __forceinline__ void compress_warp(const int32_t *rows, uint8_t *out, int n,
-                                              uint64_t (*buf)[10][32]) {
-  const int lane = threadIdx.x & 31, group = (threadIdx.x >> 5) / K4_GROUP;
-  const int i = blockIdx.x * (128 / K4_GROUP) + group * 32 + lane;
-  coop_ops<K4_GROUP, J> m{buf, lane, 0};
-  alignas(16) uint8_t b[32];
-  compress_point(b, rows + 72 * (size_t)(i < n ? i : n - 1), m);
-  if (J == 0 && i < n) {
-    uint4 *dst = reinterpret_cast<uint4 *>(out + 32 * (size_t)i);
-    dst[0] = *reinterpret_cast<const uint4 *>(b);
-    dst[1] = *reinterpret_cast<const uint4 *>(b + 16);
-  }
-}
-
-// with T > 1, 3 blocks an SM keep the main path's ~320 blocks resident at once
-__global__ void __launch_bounds__(128, K4_GROUP == 1 ? 1 : 3)
+__global__ void __launch_bounds__(128)
     compress_kernel(const int32_t *__restrict__ rows, uint8_t *__restrict__ out, int n) {
-  static_assert(K4_GROUP == 1 || K4_GROUP == 2 || K4_GROUP == 4, "K4_GROUP is 1, 2 or 4");
-  if (K4_GROUP == 1) {  // one thread a point
-    const int i = blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= n) return;
-    alignas(16) uint8_t b[32];
-    compress_one(b, rows + 72 * (size_t)i);
-    uint4 *dst = reinterpret_cast<uint4 *>(out + 32 * (size_t)i);
-    dst[0] = *reinterpret_cast<const uint4 *>(b);
-    dst[1] = *reinterpret_cast<const uint4 *>(b + 16);
-    return;
-  }
-  __shared__ uint64_t buf[4 / K4_GROUP][2][10][32];
-  uint64_t (*mine)[10][32] = buf[(threadIdx.x >> 5) / K4_GROUP];
-  switch ((threadIdx.x >> 5) % K4_GROUP) {  // the same in a whole warp: no divergence
-    case 0: compress_warp<0>(rows, out, n, mine); break;
-    case 1: compress_warp<1 % K4_GROUP>(rows, out, n, mine); break;
-    case 2: compress_warp<2 % K4_GROUP>(rows, out, n, mine); break;
-    case 3: compress_warp<3 % K4_GROUP>(rows, out, n, mine); break;
-  }
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  alignas(16) uint8_t b[32];
+  compress_one(b, rows + 72 * (size_t)i);
+  uint4 *dst = reinterpret_cast<uint4 *>(out + 32 * (size_t)i);
+  dst[0] = *reinterpret_cast<const uint4 *>(b);
+  dst[1] = *reinterpret_cast<const uint4 *>(b + 16);
 }
 
 extern "C" int xhe_compress(const void *rows, void *out, int n, void *stream) {
   if (n > 0) {
-    const int per_block = 128 / K4_GROUP;
-    compress_kernel<<<(n + per_block - 1) / per_block, 128, 0, (cudaStream_t)stream>>>(
+    compress_kernel<<<(n + 127) / 128, 128, 0, (cudaStream_t)stream>>>(
         (const int32_t *)rows, (uint8_t *)out, n);
   }
   return (int)cudaGetLastError();

@@ -12,11 +12,11 @@
 // (2 blocks of 128 an SM, 2 warps a scheduler) the kernel reached half its
 // bound.  decompress_one now holds only the chain's value over the chain and
 // recomputes the rest from the encoding after it, and __launch_bounds__
-// caps the registers at 128 (K1_MIN_BLOCKS = 4 blocks an SM, 4 warps a
-// scheduler) with no spills.  3 blocks, and the parallel carry
-// (fe_reduce64_par, ~10 more instructions a field operation) at 3 or 4
-// blocks, were slower (PERF.md, kernel_variants.py).  The wrapper launches
-// exactly the caller's encodings; the last block masks its ragged edge.
+// caps the registers at 128 (4 blocks an SM, 4 warps a scheduler) with no
+// spills.  3 blocks, and two rounds of parallel carries in place of
+// fe_reduce64's chain (~10 more instructions a field operation), were
+// slower (PERF.md, PR 4).  The wrapper launches exactly the caller's
+// encodings; the last block masks its ragged edge.
 
 #include <cuda_runtime.h>
 
@@ -24,13 +24,12 @@
 
 using namespace xhe;
 
-__global__ void __launch_bounds__(128, K1_MIN_BLOCKS)
+__global__ void __launch_bounds__(128, 4)
     decompress_kernel(const uint8_t *__restrict__ enc, int32_t *__restrict__ rows,
                       uint8_t *__restrict__ valid, int n) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  fe_ops_c<K1_PAR_CARRY> m;
-  const bool ok = decompress_one(rows + 72 * (size_t)i, reinterpret_cast<const uint32_t *>(enc + 32 * (size_t)i), m);
+  const bool ok = decompress_one(rows + 72 * (size_t)i, reinterpret_cast<const uint32_t *>(enc + 32 * (size_t)i));
   valid[i] = ok ? 1 : 0;
 }
 

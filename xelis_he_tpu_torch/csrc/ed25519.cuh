@@ -4,8 +4,8 @@
 // ... bits (curve25519-dalek's u32 backend, the crate the reference forks).
 // Products are 32x32 -> 64-bit (IMAD.WIDE.U32 on the GPU) summed in 64-bit
 // column accumulators, so no column sum can overflow: every operation ends
-// with a carry, which keeps limb i below 2^w_i + 2^17 (w_i its width, 26 or
-// 25), and with such inputs a column of fe_mul stays below 2^59.
+// with a carry, which keeps limbs below 2^26 + 2^17, and with such inputs a
+// column of fe_mul stays below 2^61.
 //
 // A second tier, fe15, keeps eighteen 15-bit limbs (the boundary rows' own
 // radix) with 64-bit column sums: 324 products a multiplication instead of
@@ -128,9 +128,7 @@ static XHE_HD void fe_carry(fe &h) {
   h.v[1] += c;
 }
 
-// carry 64-bit column sums (each < 2^63) into a limb vector: one chain
-// through the limbs, eleven steps deep (limb 9's carry wraps into limb 0 with
-// weight 19, as 2^255 = 19 mod p, and limb 0 carries once more)
+// carry 64-bit column sums (each < 2^63) into a limb vector
 static XHE_HD void fe_reduce64(fe &h, uint64_t t[10]) {
   uint64_t c;
 #pragma unroll
@@ -148,45 +146,6 @@ static XHE_HD void fe_reduce64(fe &h, uint64_t t[10]) {
   t[1] += c;
 #pragma unroll
   for (int i = 0; i < 10; ++i) h.v[i] = (uint32_t)t[i];
-}
-
-// fe_reduce64 in two rounds of parallel carries: in each round every limb
-// keeps its low w_i bits and passes the rest to limb i + 1 (limb 9's to limb
-// 0 with weight 19), all ten at once, so the carry is two steps deep where
-// fe_reduce64's chain is eleven, for ~10 more instructions.
-//
-// Bound.  Columns below 2^59 (fe_mul's and fe_sq's with limbs below
-// 2^w_i + 2^17): round 1's carries are below 2^34, so after it limb 0 is
-// below 2^26 + 19 * 2^34 < 2^38.3 and limb i >= 1 below 2^w_i + 2^34.  Round 2's carries are then below 2^12.3 out of limb 0
-// and 2^10 out of the others, so the limbs end below 2^26 + 19 * 2^10 (limb
-// 0), 2^25 + 2^12.3 (limb 1) and 2^w_i + 2^10: every limb below 2^w_i + 2^15,
-// inside the 2^w_i + 2^17 on which fe_mul's column bound rests.  (With both
-// operands at 2^w_i + 2^17 - 1 the largest column is 2^58.97, and the limbs
-// end at most 645 above 2^w_i: tests/test_torch_kernels.py holds this carry
-// to Python integers there.)  The limbs need not be exact: fe_canon and
-// fe_to_bytes make them so.
-static XHE_HD void fe_reduce64_par(fe &h, const uint64_t t[10]) {
-  uint64_t u[10];
-#pragma unroll
-  for (int i = 0; i < 10; ++i) {
-    const int w = limb_width(i);
-    const uint64_t c = t[i] >> w;
-    const uint32_t lo = (uint32_t)t[i] & ((1u << w) - 1u);
-    if (i < 9)
-      u[i + 1] = c;
-    else
-      u[0] = 19ull * c;
-    if (i > 0) u[i] += lo;
-  }
-  u[0] += (uint32_t)t[0] & 0x3ffffffu;
-  uint32_t d[10];
-#pragma unroll
-  for (int i = 0; i < 10; ++i) d[i] = (uint32_t)(u[i] >> limb_width(i));
-#pragma unroll
-  for (int i = 0; i < 10; ++i) {
-    const uint32_t lo = (uint32_t)u[i] & ((1u << limb_width(i)) - 1u);
-    h.v[i] = lo + (i ? d[i - 1] : 19u * d[9]);
-  }
 }
 
 static XHE_HD void fe_add(fe &h, const fe &f, const fe &g) {
@@ -263,134 +222,10 @@ static XHE_HD void fe_sq(fe &h, const fe &f) {
   fe_reduce64(h, t);
 }
 
-// The same column sums one column at a time: columns [lo, hi) of f * g, each
-// summed whole into t[k], the other entries of t left alone.  K1 sums all
-// ten this way (its measured build), and K4's cooperative form splits them
-// over the threads of a point (fe_mul_part); the sums do not depend on who
-// computes them.  lo and hi are constants after inlining wherever these
-// run on the card.
-static XHE_HD void fe_mul_cols(uint64_t t[10], const fe &f, const fe &g, int lo, int hi) {
-  uint32_t g19[10], f2[10];
-#pragma unroll
-  for (int i = 0; i < 10; ++i) {
-    g19[i] = 19u * g.v[i];
-    f2[i] = (i & 1) ? 2u * f.v[i] : f.v[i];
-  }
-#pragma unroll
-  for (int k = 0; k < 10; ++k) {
-    if (k < lo || k >= hi) continue;
-    uint64_t sum = 0;
-#pragma unroll
-    for (int i = 0; i < 10; ++i) {
-      const int j = (k - i + 10) % 10;
-      const uint32_t a = ((i & 1) && (j & 1)) ? f2[i] : f.v[i];
-      sum += (uint64_t)a * (i + j < 10 ? g.v[j] : g19[j]);
-    }
-    t[k] = sum;
-  }
-}
-
-// Columns [lo, hi) of f^2, fe_sq's column sums one column at a time.
-static XHE_HD void fe_sq_cols(uint64_t t[10], const fe &f, int lo, int hi) {
-  uint32_t f2[10], f19[10];
-#pragma unroll
-  for (int i = 0; i < 10; ++i) {
-    f2[i] = 2u * f.v[i];
-    f19[i] = 19u * f.v[i];
-  }
-#pragma unroll
-  for (int k = 0; k < 10; ++k) {
-    if (k < lo || k >= hi) continue;
-    uint64_t sum = 0;
-#pragma unroll
-    for (int i = 0; i < 10; ++i) {
-#pragma unroll
-      for (int j = i; j < 10; ++j) {
-        if ((i + j) % 10 != k) continue;
-        uint32_t a = (i == j) ? f.v[i] : f2[i];
-        if ((i & 1) && (j & 1)) a *= 2u;
-        sum += (uint64_t)a * (i + j < 10 ? f.v[j] : f19[j]);
-      }
-    }
-    t[k] = sum;
-  }
-}
-
-// K1's and K4's compile-time constants.  One value of each is compiled;
-// kernel_variants.py builds others with -D to time them (PERF.md).
-#ifndef XHE_K1_MIN_BLOCKS
-#define XHE_K1_MIN_BLOCKS 4
-#endif
-#ifndef XHE_K1_PAR_CARRY
-#define XHE_K1_PAR_CARRY 0
-#endif
-#ifndef XHE_K4_GROUP
-#define XHE_K4_GROUP 1
-#endif
-#ifndef XHE_K4_PAR_CARRY
-#define XHE_K4_PAR_CARRY 0
-#endif
-constexpr int K1_MIN_BLOCKS = XHE_K1_MIN_BLOCKS;      // K1's resident blocks of 128 an SM
-constexpr bool K1_PAR_CARRY = XHE_K1_PAR_CARRY != 0;  // K1 carries by fe_reduce64_par
-constexpr int K4_GROUP = XHE_K4_GROUP;                // threads a point of K4 (ops/kernels.py K4_GROUP)
-constexpr bool K4_PAR_CARRY = XHE_K4_PAR_CARRY != 0;  // K4 carries by fe_reduce64_par
-
-// -- one field element's products over T threads (K4) ------------------------
-//
-// Thread j of a point's T threads owns columns [10 j / T, 10 (j + 1) / T):
-// its step is fe_mul_part or fe_sq_part.  The caller then gives every thread
-// all ten column sums (through shared memory on the card, a loop over the T
-// threads on the host), and each thread carries them itself, so all T hold
-// the same limbs and run the rest of the point's arithmetic alike.
-
-static XHE_HD int coop_col(int j, int T) { return 10 * j / T; }
-
-static XHE_HD void fe_mul_part(uint64_t t[10], const fe &f, const fe &g, int j, int T) {
-  fe_mul_cols(t, f, g, coop_col(j, T), coop_col(j + 1, T));
-}
-
-static XHE_HD void fe_sq_part(uint64_t t[10], const fe &f, int j, int T) {
-  fe_sq_cols(t, f, coop_col(j, T), coop_col(j + 1, T));
-}
-
-// The field multiplication and squaring of the chains below come from a
-// policy M (M::mul, M::sq): fe_ops is fe_mul and fe_sq (K4); fe_ops_c<PAR>
-// sums the columns one at a time and carries them with fe_reduce64_par (PAR)
-// or fe_reduce64 (K1).  K4's cooperative policy is in compress.cu, its host
-// counterpart in the test shim.
-template <bool PAR>
-static XHE_HD void fe_reduce(fe &h, uint64_t t[10]) {
-  if (PAR)
-    fe_reduce64_par(h, t);
-  else
-    fe_reduce64(h, t);
-}
-
-template <bool PAR>
-struct fe_ops_c {
-  XHE_HD void mul(fe &h, const fe &f, const fe &g) {
-    XHE_COUNT_MUL();
-    uint64_t t[10];
-    fe_mul_cols(t, f, g, 0, 10);
-    fe_reduce<PAR>(h, t);
-  }
-  XHE_HD void sq(fe &h, const fe &f) {
-    XHE_COUNT_SQ();
-    uint64_t t[10];
-    fe_sq_cols(t, f, 0, 10);
-    fe_reduce<PAR>(h, t);
-  }
-};
-struct fe_ops {
-  XHE_HD void mul(fe &h, const fe &f, const fe &g) { fe_mul(h, f, g); }
-  XHE_HD void sq(fe &h, const fe &f) { fe_sq(h, f); }
-};
-
-template <class M>
-static XHE_HD void fe_sqn(fe &h, const fe &f, int n, M &m) {
-  m.sq(h, f);
+static XHE_HD void fe_sqn(fe &h, const fe &f, int n) {
+  fe_sq(h, f);
 #pragma unroll 1
-  for (int i = 1; i < n; ++i) m.sq(h, h);
+  for (int i = 1; i < n; ++i) fe_sq(h, h);
 }
 
 // canonical limbs: the value reduced into [0, p), every limb exactly its width
@@ -450,39 +285,37 @@ static XHE_HD void fe_cneg(fe &h, bool cond, const fe &f) {
 static XHE_HD void fe_abs(fe &h, const fe &f) { fe_cneg(h, fe_is_negative(f), f); }
 
 // (x^(2^250 - 1), x^11): the shared prefix of invert and pow_p58
-template <class M>
-static XHE_HD void fe_pow22501(fe &t7, fe &t0, const fe &x, M &m) {
+static XHE_HD void fe_pow22501(fe &t7, fe &t0, const fe &x) {
   fe t1, t2, t3, t4, t5, t6;
-  m.sq(t0, x);             // 2
-  fe_sqn(t1, t0, 2, m);    // 8
-  m.mul(t1, x, t1);        // 9
-  m.mul(t0, t0, t1);       // 11
-  m.sq(t2, t0);            // 22
-  m.mul(t2, t1, t2);       // 2^5 - 1
-  fe_sqn(t3, t2, 5, m);
-  m.mul(t3, t3, t2);       // 2^10 - 1
-  fe_sqn(t4, t3, 10, m);
-  m.mul(t4, t4, t3);       // 2^20 - 1
-  fe_sqn(t5, t4, 20, m);
-  m.mul(t5, t5, t4);       // 2^40 - 1
-  fe_sqn(t5, t5, 10, m);
-  m.mul(t5, t5, t3);       // 2^50 - 1
-  fe_sqn(t6, t5, 50, m);
-  m.mul(t6, t6, t5);       // 2^100 - 1
-  fe_sqn(t7, t6, 100, m);
-  m.mul(t7, t7, t6);       // 2^200 - 1
-  fe_sqn(t7, t7, 50, m);
-  m.mul(t7, t7, t5);       // 2^250 - 1
+  fe_sq(t0, x);          // 2
+  fe_sqn(t1, t0, 2);     // 8
+  fe_mul(t1, x, t1);     // 9
+  fe_mul(t0, t0, t1);    // 11
+  fe_sq(t2, t0);         // 22
+  fe_mul(t2, t1, t2);    // 2^5 - 1
+  fe_sqn(t3, t2, 5);
+  fe_mul(t3, t3, t2);    // 2^10 - 1
+  fe_sqn(t4, t3, 10);
+  fe_mul(t4, t4, t3);    // 2^20 - 1
+  fe_sqn(t5, t4, 20);
+  fe_mul(t5, t5, t4);    // 2^40 - 1
+  fe_sqn(t5, t5, 10);
+  fe_mul(t5, t5, t3);    // 2^50 - 1
+  fe_sqn(t6, t5, 50);
+  fe_mul(t6, t6, t5);    // 2^100 - 1
+  fe_sqn(t7, t6, 100);
+  fe_mul(t7, t7, t6);    // 2^200 - 1
+  fe_sqn(t7, t7, 50);
+  fe_mul(t7, t7, t5);    // 2^250 - 1
 }
 
 // x^((p-5)/8) = x^(2^252 - 3)
-template <class M>
-static XHE_HD void fe_pow_p58(fe &h, const fe &x, M &m) {
+static XHE_HD void fe_pow_p58(fe &h, const fe &x) {
   fe t7, t0, x0;
   fe_copy(x0, x);  // h may alias x
-  fe_pow22501(t7, t0, x0, m);
-  fe_sqn(h, t7, 2, m);
-  m.mul(h, h, x0);
+  fe_pow22501(t7, t0, x0);
+  fe_sqn(h, t7, 2);
+  fe_mul(h, h, x0);
 }
 
 // RFC 9496 SQRT_RATIO_M1 (u, v) in three parts, so that a caller can drop
@@ -491,36 +324,41 @@ static XHE_HD void fe_pow_p58(fe &h, const fe &x, M &m) {
 //   front: x = u v^7 and v3 = v^3;
 //   the chain: pw = x^((p-5)/8) (fe_pow_p58);
 //   back: r = u v3 pw, the checks, and was_square.
-template <class M>
-static XHE_HD void fe_sqrt_ratio_front(fe &x, fe &v3, const fe &u, const fe &v, M &m) {
+static XHE_HD void fe_sqrt_ratio_front(fe &x, fe &v3, const fe &u, const fe &v) {
   fe t;
-  m.sq(t, v);
-  m.mul(v3, t, v);
-  m.sq(t, v3);
-  m.mul(x, t, v);  // v^7
-  m.mul(x, u, x);
+  fe_sq(t, v);
+  fe_mul(v3, t, v);
+  fe_sq(t, v3);
+  fe_mul(x, t, v);  // v^7
+  fe_mul(x, u, x);
 }
 
 // returns was_square, r = nonnegative sqrt(u/v) (or sqrt(i*u/v) when u/v
 // is not square)
-template <class M>
-static XHE_HD bool fe_sqrt_ratio_back(fe &r, const fe &pw, const fe &u, const fe &v, const fe &v3,
-                                      M &m) {
+static XHE_HD bool fe_sqrt_ratio_back(fe &r, const fe &pw, const fe &u, const fe &v, const fe &v3) {
   fe t, check, neg_u, neg_u_i, sqrt_m1, r_prime;
-  m.mul(r, u, v3);
-  m.mul(r, r, pw);
-  m.sq(t, r);
-  m.mul(check, v, t);
+  fe_mul(r, u, v3);
+  fe_mul(r, r, pw);
+  fe_sq(t, r);
+  fe_mul(check, v, t);
   fe_neg(neg_u, u);
   fe_sqrt_m1(sqrt_m1);
-  m.mul(neg_u_i, neg_u, sqrt_m1);
+  fe_mul(neg_u_i, neg_u, sqrt_m1);
   const bool correct = fe_eq(check, u);
   const bool flipped = fe_eq(check, neg_u);
   const bool flipped_i = fe_eq(check, neg_u_i);
-  m.mul(r_prime, r, sqrt_m1);
+  fe_mul(r_prime, r, sqrt_m1);
   fe_select(r, flipped || flipped_i, r_prime, r);
   fe_abs(r, r);
   return correct || flipped;
+}
+
+// RFC 9496 SQRT_RATIO_M1 whole (K4)
+static XHE_HD bool fe_sqrt_ratio_m1(fe &r, const fe &u, const fe &v) {
+  fe x, v3;
+  fe_sqrt_ratio_front(x, v3, u, v);
+  fe_pow_p58(x, x);
+  return fe_sqrt_ratio_back(r, x, u, v, v3);
 }
 
 // -- edges: (18,) rows of 15-bit limbs ---------------------------------------
@@ -865,37 +703,34 @@ static XHE_HD void ge_add_niels(ge_t<F> &r, const ge_t<F> &p, const ge_niels_t<F
 // -- ristretto255 encoding (RFC 9496) ----------------------------------------
 
 // ENCODE: canonical s of the encoding
-template <class M>
-static XHE_HD void ge_compress_s(fe &s, const ge &p, M &m) {
-  fe u1, u2, t, invsqrt, den1, den2, z_inv, ix0, iy0, enchanted, x, y, den_inv, one, k, v3;
+static XHE_HD void ge_compress_s(fe &s, const ge &p) {
+  fe u1, u2, t, invsqrt, den1, den2, z_inv, ix0, iy0, enchanted, x, y, den_inv, one, k;
   fe_add(t, p.Z, p.Y);
   fe_sub(u1, p.Z, p.Y);
-  m.mul(u1, t, u1);
-  m.mul(u2, p.X, p.Y);
-  m.sq(t, u2);
-  m.mul(t, u1, t);
+  fe_mul(u1, t, u1);
+  fe_mul(u2, p.X, p.Y);
+  fe_sq(t, u2);
+  fe_mul(t, u1, t);
   fe_set_small(one, 1);
-  fe_sqrt_ratio_front(x, v3, one, t, m);
-  fe_pow_p58(x, x, m);
-  fe_sqrt_ratio_back(invsqrt, x, one, t, v3, m);
-  m.mul(den1, invsqrt, u1);
-  m.mul(den2, invsqrt, u2);
-  m.mul(z_inv, den1, den2);
-  m.mul(z_inv, z_inv, p.T);
+  fe_sqrt_ratio_m1(invsqrt, one, t);
+  fe_mul(den1, invsqrt, u1);
+  fe_mul(den2, invsqrt, u2);
+  fe_mul(z_inv, den1, den2);
+  fe_mul(z_inv, z_inv, p.T);
   fe_sqrt_m1(k);
-  m.mul(ix0, p.X, k);
-  m.mul(iy0, p.Y, k);
+  fe_mul(ix0, p.X, k);
+  fe_mul(iy0, p.Y, k);
   fe_invsqrt_a_minus_d(k);
-  m.mul(enchanted, den1, k);
-  m.mul(t, p.T, z_inv);
+  fe_mul(enchanted, den1, k);
+  fe_mul(t, p.T, z_inv);
   const bool rotate = fe_is_negative(t);
   fe_select(x, rotate, iy0, p.X);
   fe_select(y, rotate, ix0, p.Y);
   fe_select(den_inv, rotate, enchanted, den2);
-  m.mul(t, x, z_inv);
+  fe_mul(t, x, z_inv);
   fe_cneg(y, fe_is_negative(t), y);
   fe_sub(t, p.Z, y);
-  m.mul(t, den_inv, t);
+  fe_mul(t, den_inv, t);
   fe_abs(t, t);
   fe_canon(s, t);
 }
@@ -919,17 +754,16 @@ static XHE_HD bool decode_parse(fe &s, const uint32_t w[8]) {
 }
 
 // u1 = 1 - s^2, u2 = 1 + s^2, u2^2 and v = -d u1^2 - u2^2
-template <class M>
-static XHE_HD void decode_terms(fe &u1, fe &u2, fe &u2_sqr, fe &v, const fe &s, M &m) {
+static XHE_HD void decode_terms(fe &u1, fe &u2, fe &u2_sqr, fe &v, const fe &s) {
   fe one, ss, t;
   fe_set_small(one, 1);
-  m.sq(ss, s);
+  fe_sq(ss, s);
   fe_sub(u1, one, ss);
   fe_add(u2, one, ss);
-  m.sq(u2_sqr, u2);
+  fe_sq(u2_sqr, u2);
   fe_d(t);
-  m.mul(t, t, u1);
-  m.mul(t, t, u1);
+  fe_mul(t, t, u1);
+  fe_mul(t, t, u1);
   fe_neg(t, t);
   fe_sub(v, t, u2_sqr);
 }
@@ -959,36 +793,35 @@ static XHE_HD void load_again(T *dst, const T *src, int n) {
 // multiplications more than the function needs: k1_executed in
 // ops/kernels.py).  That frees their ~80 registers for more resident
 // threads.
-template <class M>
-static XHE_HD bool decompress_one(int32_t *rows, const uint32_t *src, M &m) {
+static XHE_HD bool decompress_one(int32_t *rows, const uint32_t *src) {
   uint32_t w[8];
   fe one, s, u1, u2, u2_sqr, v, t, x, v3;
   fe_set_small(one, 1);
   load_again(w, src, 8);
   decode_parse(s, w);
-  decode_terms(u1, u2, u2_sqr, v, s, m);
-  m.mul(t, v, u2_sqr);
-  fe_sqrt_ratio_front(x, v3, one, t, m);
-  fe_pow_p58(x, x, m);
+  decode_terms(u1, u2, u2_sqr, v, s);
+  fe_mul(t, v, u2_sqr);
+  fe_sqrt_ratio_front(x, v3, one, t);
+  fe_pow_p58(x, x);
   load_again(w, src, 8);
   decode_parse(s, w);
-  decode_terms(u1, u2, u2_sqr, v, s, m);
-  m.mul(t, v, u2_sqr);
-  m.sq(v3, t);
-  m.mul(v3, v3, t);
+  decode_terms(u1, u2, u2_sqr, v, s);
+  fe_mul(t, v, u2_sqr);
+  fe_sq(v3, t);
+  fe_mul(v3, v3, t);
   fe invsqrt, den_x, den_y, y;
-  const bool was_square = fe_sqrt_ratio_back(invsqrt, x, one, t, v3, m);
+  const bool was_square = fe_sqrt_ratio_back(invsqrt, x, one, t, v3);
   load_again(w, src, 8);
   const bool bytes_ok = decode_parse(s, w);
-  decode_terms(u1, u2, u2_sqr, v, s, m);
-  m.mul(den_x, invsqrt, u2);
-  m.mul(den_y, invsqrt, den_x);
-  m.mul(den_y, den_y, v);
+  decode_terms(u1, u2, u2_sqr, v, s);
+  fe_mul(den_x, invsqrt, u2);
+  fe_mul(den_y, invsqrt, den_x);
+  fe_mul(den_y, den_y, v);
   fe_add(t, s, s);
-  m.mul(t, t, den_x);
+  fe_mul(t, t, den_x);
   fe_abs(x, t);
-  m.mul(y, u1, den_y);
-  m.mul(t, x, y);
+  fe_mul(y, u1, den_y);
+  fe_mul(t, x, y);
   const bool valid = bytes_ok && was_square && !fe_is_negative(t) && !fe_is_zero(y);
   ge p;
   if (valid) {
@@ -1003,19 +836,13 @@ static XHE_HD bool decompress_one(int32_t *rows, const uint32_t *src, M &m) {
   return valid;
 }
 
-// K4 body: one point's rows -> 32 encoding bytes, its products from policy M
-template <class M>
-static XHE_HD void compress_point(uint8_t *out, const int32_t *rows, M &m) {
+// K4 body: one point's rows -> 32 encoding bytes
+static XHE_HD void compress_one(uint8_t *out, const int32_t *rows) {
   ge p;
   ge_from_rows(p, rows);
   fe s;
-  ge_compress_s(s, p, m);
+  ge_compress_s(s, p);
   fe_to_bytes(out, s);
-}
-
-static XHE_HD void compress_one(uint8_t *out, const int32_t *rows) {
-  fe_ops m;
-  compress_point(out, rows, m);
 }
 
 // One node of the pairwise tree over a power-of-two run of points: lane i + h

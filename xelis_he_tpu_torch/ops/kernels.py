@@ -42,7 +42,6 @@ K2_SPLIT = 2  # threads a slot of K2 (csrc/ed25519.cuh K2_SPLIT)
 K2_TABLE = 9  # niels entries a sub of K2, 0P..8P (its scratch: K_PACK x K2_TABLE a slot)
 TILE = 512  # lanes per tile of K3
 K3_SUB = 64  # rows a block of K3 reduces (csrc/ed25519.cuh K3_SUB)
-K4_GROUP = 1  # threads a point of K4 (csrc/ed25519.cuh K4_GROUP)
 GE_WORDS = 40  # 32-bit words of a point or niels entry in the kernels' radix 2^25.5
 QTILE = 256  # slot granule of the signature lanes
 N_WINDOWS = 64  # signed 4-bit windows of a scalar < 2^253
