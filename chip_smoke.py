@@ -12,11 +12,13 @@ Phases, each of which fails the run loudly:
 3. kernels vs plain: each kernel's wrapper on the card against its plain
    PyTorch version on the card, on edge cases (bit-exact: every output is
    canonical), against host references (pyref), and K6 against K2 (by
-   encodings: K2 adds in another order); K1 and K4 also at counts at and
-   around their blocks' edges, K4 on 4-torsion cosets with Z != 1 (both
-   branches of its encode's rotation and sign flip), K2 at a ragged slot
-   count, K3 at tiles from 1 to 1024; ptxas must report no spills for K1 and
-   K4;
+   encodings: the two split a slot over their own thread counts); K1 and K4
+   also at counts at and around their blocks' edges, K4 on 4-torsion cosets
+   with Z != 1 (both branches of its encode's rotation and sign flip), K2
+   and K6 at a ragged slot count, K3 at tiles from 1 to 1024, K7 at lane
+   counts that leave a quad of threads or a warp partly filled; ptxas must
+   report no spills for K1 and K4, and its figures for K6 and K7 are
+   printed;
 4. main path: a block of ``--txs`` one-transfer transactions, built as
    bench.py builds it, verified through xelis_he_tpu_torch.verify_batch on
    ``Accelerator()``: one counted verify (launch counts, synchronising calls,
@@ -53,12 +55,12 @@ card's name and power limit as nvidia-smi prints them, and {"ok": true,
 "device": {...}}.  Long logs go to chiprun_out/.  Without a CUDA device, or
 outside a checkout of the repository, it exits non-zero and prints no result.
 
-With ``--kernels-from DIR`` it only times K1-K5 and K7 of the port checked
-out at DIR (for instance a ``git archive`` of an earlier commit) at the main
-path's largest shapes, on inputs made from ``--seed``, with a digest of each
-output and K1's and K4's ptxas figures and SASS mix of one squaring, and
-prints one JSON line: run it on two checkouts in one call to compare them on
-one card.
+With ``--kernels-from DIR`` it only times K1-K7 of the port checked out at
+DIR (for instance a ``git archive`` of an earlier commit) at the main path's
+largest shapes, and K7 also at a count that fills the card, on inputs made
+from ``--seed``, with a digest of each output, the ptxas figures of K1, K4,
+K6 and K7 and K1's and K4's SASS mix of one squaring, and prints one JSON
+line: run it on two checkouts in one call to compare them on one card.
 """
 
 from __future__ import annotations
@@ -104,6 +106,10 @@ KERNELS = {
     "daa_lanes": ("xelis_he_tpu_torch/csrc/daa_lanes.cu", "xelis_he_tpu/ops/pallas_msm.py:411",
                   "daa_lanes_kernel"),
 }
+# the library (csrc/<name>.cu, ops/_build.py) each kernel is built into
+LIBS = {name: pathlib.Path(src).stem for name, (src, _, _) in KERNELS.items()}
+# kernels whose ptxas figures the build phase and --kernels-from print
+BUILD_FIGURES = ("decompress", "compress", "windowed_lanes_k8_fe15", "daa_lanes")
 # the kernels of the default verify (phase 4); the others run on the paths of phases 6-9
 DEFAULT_PATH = ("decompress", "windowed_lanes_k8", "tile_sums", "compress")
 EDGE_SCALARS = [0, 1, L - 1, L - 1, (1 << 253) - 1, 2, L - 2, 1 << 128]  # tests/test_fe13.py's
@@ -394,12 +400,16 @@ def check_kernels(rng: random.Random, device) -> dict:
     if (K.compress(sums[:1]) != 0).any():
         raise AssertionError("K3: the sum of an identity tile is not the identity")
 
-    # K6 on K2's 2048 slots: against its plain version and against K2 (two
-    # field tiers and two orders of addition, one answer: compared encoded)
+    # K6 on K2's 2048 slots and on a ragged count: against its plain version
+    # by rows and against K2 (two field tiers, one answer: compared encoded)
     acc15 = K.windowed_lanes_k8_fe15(k2_pts, k2_dig)
+    acc15_ragged = K.windowed_lanes_k8_fe15(*ragged)
     errs["windowed_lanes_k8_fe15"] = worst(
         expect_equal("K6 rows", acc15, K.windowed_lanes_k8_fe15_plain(k2_pts, k2_dig)),
         expect_equal("K6 encodings against K2's", K.compress(acc15), K.compress(acc)),
+        expect_equal("K6 rows, 37 slots", acc15_ragged, K.windowed_lanes_k8_fe15_plain(*ragged)),
+        expect_equal("K6 encodings against K2's, 37 slots", K.compress(acc15_ragged),
+                     K.compress(acc[:37].contiguous())),
     )
 
     # K5 on 4096 lanes: pool points, edge scalars, zero scalars, identity lanes
@@ -431,7 +441,14 @@ def check_kernels(rng: random.Random, device) -> dict:
         raise AssertionError("K7: the device form of pack_bits disagrees with the host's")
     k7_pts = k5_pts[:n7].contiguous()
     daa = K.daa_lanes(k7_pts, k7_bits)
-    errs["daa_lanes"] = expect_equal("K7 rows", daa, K.daa_lanes_plain(k7_pts, k7_bits))
+    k7_errs = [expect_equal("K7 rows", daa, K.daa_lanes_plain(k7_pts, k7_bits))]
+    # a lane is a quad of threads, 8 lanes a warp: counts that leave a quad's
+    # warp or block partly filled, each from the edge lanes on
+    for n_ in (1, 7, 9, 511):
+        part_pts, part_bits = k7_pts[:n_].contiguous(), k7_bits[:, :n_].contiguous()
+        k7_errs.append(expect_equal(f"K7 rows, {n_} lanes", K.daa_lanes(part_pts, part_bits),
+                                    K.daa_lanes_plain(part_pts, part_bits)))
+    errs["daa_lanes"] = worst(*k7_errs)
     daa_enc = K.compress(daa).cpu().numpy()
     for i in range(40):
         ref = IDENTITY if 24 <= i < 32 else multiscalar_mul([daa_scal[i] & ((1 << 253) - 1)], [pool_pts[lane_pick[i]]])
@@ -767,7 +784,14 @@ def generic_msm(rng: random.Random, txs, ledger, accel):
     expect_launched("MsmEngine.msm_daa, 512 lanes", launches, ("daa_lanes", "tile_sums"))
     if curve.to_points(tuple(c[None] for c in res))[0] != multiscalar_mul(daa_sc, daa_pts):
         raise AssertionError("MsmEngine.msm_daa disagrees with pyref")
-    log("  MsmEngine.msm_daa on 512 lanes agrees with pyref")
+    daa_ms = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        engine.msm_daa(batch, bits)
+        torch.cuda.synchronize()
+        daa_ms.append((time.perf_counter() - t0) * 1e3)
+    log(f"  MsmEngine.msm_daa on 512 lanes agrees with pyref; one call {statistics.median(daa_ms):.3f} ms "
+        f"(host clock to the end of its device work, median of 5)")
     return launches["daa_lanes"], recs["daa_lanes"]
 
 
@@ -1061,15 +1085,17 @@ def sass_loop_mix(lib: pathlib.Path, kernel: str) -> dict:
 
 def kernels_from(root: pathlib.Path, seed: int) -> dict:
     """The kernels of the port checked out at ``root``, at the main path's
-    largest shapes: K1 at 290,002 encodings, K2 at 7,936 slots, K3 at 6,656
-    rows in tiles of 512 and at a ``sum_points`` shape (32 rows in tiles of
-    16), K4 at 10,242 points, K5 at 49,152 lanes and K7 at 512 lanes.  Device
-    time and call time (over 100 calls back to back) of each, on inputs made
-    from ``seed`` (points from 1,024 valid encodings through K1, K4's from
-    K2's slot sums, so Z != 1), with a digest of each kernel's output (K1's
-    rows and flags, K4's bytes, the others' sums encoded by the running
-    tree's K4), which any two commits must share; and ptxas's figures and
-    one fe_sq's SASS instruction mix of K1 and K4 as that tree builds them."""
+    largest shapes: K1 at 290,002 encodings, K2 and K6 at 7,936 slots, K3 at
+    6,656 rows in tiles of 512 and at a ``sum_points`` shape (32 rows in tiles
+    of 16), K4 at 10,242 points, K5 at 49,152 lanes, and K7 at 512 lanes and
+    at 49,152 (a count that fills the card).  Device time and call time (over
+    100 calls back to back) of each, on inputs made from ``seed`` (points
+    from 1,024 valid encodings through K1, K4's from K2's slot sums, so Z !=
+    1), with a digest of each kernel's output (K1's rows and flags, K4's
+    bytes, K7's rows, the others' sums encoded by the running tree's K4),
+    which any two commits must share; ptxas's figures of K1, K4, K6 and K7
+    and one fe_sq's SASS instruction mix of K1 and K4 as that tree builds
+    them."""
     import hashlib
 
     import numpy as np
@@ -1112,6 +1138,7 @@ def kernels_from(root: pathlib.Path, seed: int) -> dict:
     k5_pts, k5_dig = pick(pool, 49_152), K.recode_signed4_torch(scalars(49_152))
     k7_pts, k7_bits = pick(pool, 512), K.pack_bits_torch(scalars(512))
     k3_in = {(n, tile): pick(pool, n) for n, tile in ((6656, 512), (32, 16))}
+    k7_full_pts, k7_full_bits = pick(pool, 49_152), K.pack_bits_torch(scalars(49_152))
     cases = [
         ("decompress", "290002 encodings", lambda: K.decompress(k1_in)),
         ("windowed_lanes_k8", f"{S} slots", lambda: K.windowed_lanes_k8(pts, dig)),
@@ -1120,23 +1147,27 @@ def kernels_from(root: pathlib.Path, seed: int) -> dict:
         ("compress", "10242 points", lambda: K.compress(k4_in)),
         ("windowed_lanes", "49152 lanes", lambda: K.windowed_lanes(k5_pts, k5_dig)),
         ("daa_lanes", "512 lanes", lambda: K.daa_lanes(k7_pts, k7_bits)),
+        ("windowed_lanes_k8_fe15", f"{S} slots", lambda: K.windowed_lanes_k8_fe15(pts, dig)),
+        ("daa_lanes", "49152 lanes", lambda: K.daa_lanes(k7_full_pts, k7_full_bits)),
     ]
     out = {"kernels_from": str(root)}
     for name, shape, fn in cases:
         res = fn()
         if name == "decompress":
             d = digest(torch.cat([res[0].reshape(-1, 72), res[1][:, None].to(torch.int32)], dim=1))
-        elif name == "compress":
-            d = digest(res)
+        elif name in ("compress", "daa_lanes"):
+            d = digest(res)  # K7's rows are bit for bit its function's
         else:
             d = digest(K.compress(res))
         out[f"{name} at {shape}"] = {"ms": device_ms(fn, KERNELS[name][2]), "call_ms": call_ms(fn, 100), "digest": d}
     torch.cuda.synchronize()
-    for name in ("decompress", "compress"):
-        fn_name = KERNELS[name][2]
+    for name in BUILD_FIGURES:
+        fn_name, lib = KERNELS[name][2], LIBS[name]
         # ptxas speaks only when this process compiled the library
-        info = ptxas_info(_build.ptxas_log[name], fn_name) if name in _build.ptxas_log else {}
-        out[f"{name} build"] = {**info, "fe_sq_sass": sass_loop_mix(lib_dir / f"lib{name}.so", fn_name)}
+        info = ptxas_info(_build.ptxas_log[lib], fn_name) if lib in _build.ptxas_log else {}
+        if name in ("decompress", "compress"):
+            info["fe_sq_sass"] = sass_loop_mix(lib_dir / f"lib{lib}.so", fn_name)
+        out[f"{name} build"] = info
     return out
 
 
@@ -1146,7 +1177,7 @@ def main() -> int:
     ap.add_argument("--iters", type=int, default=3, help="timed verifies of the block")
     ap.add_argument("--seed", type=int, default=1, help="seed of the kernel inputs")
     ap.add_argument("--kernels-from", type=pathlib.Path, default=None, metavar="DIR",
-                    help="only time K1-K5 and K7 of the port checked out at DIR")
+                    help="only time K1-K7 of the port checked out at DIR")
     args = ap.parse_args()
 
     import torch
@@ -1177,13 +1208,17 @@ def main() -> int:
         for line in v.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  {k}: {line.strip()}")
-    # K1 and K4 buy resident warps with registers: their figures, and no spills
+    # K1 and K4 buy resident warps with registers: their figures, and no
+    # spills; K6's and K7's figures beside them
     builds = {}
-    for name, threads in (("decompress", 128), ("compress", 128)):
-        info = ptxas_info(_build.ptxas_log[name], KERNELS[name][2])
+    block_threads = {"decompress": 128, "compress": 128, "windowed_lanes_k8_fe15": 32 * K.K6_SPLIT,
+                     "daa_lanes": 32}
+    for name in BUILD_FIGURES:
+        threads = block_threads[name]
+        info = ptxas_info(_build.ptxas_log[LIBS[name]], KERNELS[name][2])
         info["resident_blocks"] = resident_blocks(info["registers"], threads, info["smem"])
         log(f"  {name}: {json.dumps(info)} at {threads} threads a block")
-        if info["spill_stores"] or info["spill_loads"]:
+        if name in ("decompress", "compress") and (info["spill_stores"] or info["spill_loads"]):
             raise AssertionError(f"{name}: ptxas spills registers")
         builds[name] = info
 

@@ -7,11 +7,12 @@ mode (minutes per call on a CPU): ``jax_curve()`` for K1/K4, the transposed
 helpers of ``pallas_msm`` composed as each kernel composes them for K2 (the
 13-bit tier), K5, K6 and K7 (the 15-bit tier; they take their array module as
 an argument, so numpy runs them without a compile), ``msm._tree_reduce`` for
-K3, and pyref throughout.  Every comparison is exact.  K2 adds in another
-order than the TPU kernel (its slot is split over several threads), so it
-meets the TPU helpers and K6 as encodings, and its plain version and host
-build as rows.  The CUDA kernels
-themselves run only on the card (chip_smoke.py)."""
+K3, and pyref throughout.  Every comparison is exact.  K2 and K6 add in
+another order than the TPU kernels (a slot is split over several threads),
+so they meet the TPU helpers and each other as encodings, and their plain
+versions and host builds as rows; K6's body at one thread a slot, the TPU
+kernel's order, meets the helpers by rows.  The CUDA kernels themselves run
+only on the card (chip_smoke.py)."""
 
 import ctypes
 import shutil
@@ -354,16 +355,25 @@ def test_windowed_lane_plain_matches_pallas_helpers_and_pyref(k5_reference):
     assert [bytes(r) for r in K.compress(out).numpy()] == _lane_encodings(LANE_SCAL)
 
 
+@pytest.fixture(scope="module")
+def k6_plain_rows():
+    """K6's wrapper on CPU tensors, i.e. its plain version, on K2's inputs."""
+    with plain_calls() as calls:
+        out = K.windowed_lanes_k8_fe15(torch.from_numpy(K2_ROWS.view(np.int32)), torch.from_numpy(K2_DIGITS))
+    assert calls["windowed_lanes_k8_fe15"] == 1
+    return out.numpy()
+
+
 def test_windowed_lanes_fe15_plain_matches_pallas_helpers_k2_and_pyref(k6_reference, fe13_reference,
-                                                                         k2_plain_rows):
-    pts, dig = torch.from_numpy(K2_ROWS.view(np.int32)), torch.from_numpy(K2_DIGITS)
-    out = K.windowed_lanes_k8_fe15(pts, dig)
-    assert np.array_equal(out.numpy(), k6_reference)
-    # K6 against K2 on the edge scalars: equal slot sums (K6 keeps the
-    # undivided order of the TPU kernels, so against their helpers by rows)
-    assert _row_enc(out.numpy()) == _row_enc(k2_plain_rows)
+                                                                         k2_plain_rows, k6_plain_rows):
+    # K6 splits a slot over K6_SPLIT accumulators, the TPU kernel keeps one:
+    # equal slot sums in other projective coordinates, so compared encoded,
+    # with K2 too (two field tiers, one answer)
+    assert _row_enc(k6_plain_rows) == _row_enc(k6_reference) == _row_enc(k2_plain_rows) == _pyref_slots()
     assert np.array_equal(k6_reference, fe13_reference)
-    assert [bytes(r) for r in K.compress(out).numpy()] == _pyref_slots()
+    # at one thread a slot the plain version keeps the TPU kernel's order: rows
+    pts, dig = torch.from_numpy(K2_ROWS.view(np.int32)), torch.from_numpy(K2_DIGITS)
+    assert np.array_equal(K.packed_slots_plain(pts, dig, 1).numpy(), k6_reference)
 
 
 def test_daa_lanes_plain_matches_pallas_helpers_and_pyref(k7_reference):
@@ -466,7 +476,8 @@ def shim(tmp_path_factory):
     lib.shim_compress.argtypes = [vp, vp, i]
     lib.shim_windowed_lanes_k8.argtypes = [vp, vp, vp, i]
     lib.shim_tile_sums.argtypes = [vp, vp, i, i]
-    lib.shim_windowed_lanes_k8_fe15.argtypes = [vp, vp, vp, i]
+    lib.shim_windowed_lanes_k8_fe15.argtypes = [vp, vp, vp, i, i]
+    lib.shim_windowed_lanes_k8_fe15.restype = i
     lib.shim_windowed_lanes.argtypes = [vp, vp, vp, i]
     lib.shim_daa_lanes.argtypes = [vp, vp, vp, i]
     lib.shim_fe15.argtypes = [vp, vp, vp, vp, vp, i]
@@ -474,6 +485,8 @@ def shim(tmp_path_factory):
     lib.shim_reduce64.argtypes = [vp, vp, i]
     lib.shim_k2_split.restype = i
     lib.shim_k3_sub.restype = i
+    lib.shim_k6_split.restype = i
+    lib.shim_k7_quad.restype = i
     lib.shim_mul_count.restype = ctypes.c_ulonglong
     lib.shim_sq_count.restype = ctypes.c_ulonglong
     return lib
@@ -646,28 +659,51 @@ def test_cuh_windowed_lane_matches_pallas_helpers_and_plain(shim, k5_reference):
     assert [bytes(r) for r in enc] == _lane_encodings(LANE_SCAL)
 
 
-def test_cuh_windowed_lanes_fe15_matches_pallas_helpers_and_k2(shim, k6_reference):
-    pts = np.ascontiguousarray(K2_ROWS.view(np.int32))
-    out, out_k2 = np.zeros((S_SLOTS, 4, 18), np.int32), np.zeros((S_SLOTS, 4, 18), np.int32)
+def _shim_k6(shim, split):
+    out = np.zeros((S_SLOTS, 4, 18), np.int32)
     shim.shim_reset_mul_count()
-    shim.shim_windowed_lanes_k8_fe15(_ptr(pts), _ptr(K2_DIGITS), _ptr(out), S_SLOTS)
+    assert shim.shim_windowed_lanes_k8_fe15(_ptr(np.ascontiguousarray(K2_ROWS.view(np.int32))), _ptr(K2_DIGITS),
+                                            _ptr(out), S_SLOTS, split) == 0
+    return out, _counts(shim)
+
+
+def test_cuh_windowed_lanes_fe15_matches_pallas_helpers_and_k2(shim, k6_reference, k6_plain_rows, k2_plain_rows):
+    """K6's body as the kernel runs it, at K6_SPLIT threads a slot."""
+    assert shim.shim_k6_split() == K.K6_SPLIT
+    out, counts = _shim_k6(shim, K.K6_SPLIT)
+    # what the split executes: the function's work and the split's extra doublings
+    muls, sqs = K.k6_executed()
+    assert counts == (muls * S_SLOTS, sqs * S_SLOTS)
+    assert np.array_equal(out, k6_plain_rows)
+    assert _row_enc(out) == _row_enc(k6_reference) == _row_enc(k2_plain_rows)  # two tiers, one answer
+
+
+def test_cuh_windowed_lanes_fe15_unsplit_matches_pallas_helpers_by_rows(shim, k6_reference):
+    """K6's body at one thread a slot keeps the TPU kernel's order of
+    addition, so it meets _windowed_kernel_k4's algebra row for row, with
+    the function's own counts."""
+    out, counts = _shim_k6(shim, 1)
     name = "windowed_lanes_k8_fe15"
-    assert _counts(shim) == (K.FIELD_MULS[name] * S_SLOTS, K.FIELD_SQS[name] * S_SLOTS)
+    assert counts == (K.FIELD_MULS[name] * S_SLOTS, K.FIELD_SQS[name] * S_SLOTS)
+    assert K.k6_executed(1) == (K.FIELD_MULS[name], K.FIELD_SQS[name])
     assert np.array_equal(out, k6_reference)
-    shim.shim_windowed_lanes_k8(_ptr(pts), _ptr(K2_DIGITS), _ptr(out_k2), S_SLOTS)
-    assert _row_enc(out) == _row_enc(out_k2)  # two field tiers and two orders, one answer
 
 
 def test_cuh_daa_lanes_matches_pallas_helpers_and_plain(shim, k7_reference):
+    """K7's quad body, the four roles of a lane in lockstep: bit for bit the
+    JAX kernel's rows and the plain version's."""
+    assert shim.shim_k7_quad() == 4
     n = LANE_ROWS.shape[0]
     out = np.zeros((n, 4, 18), np.int32)
     shim.shim_reset_mul_count()
     shim.shim_daa_lanes(_ptr(np.ascontiguousarray(LANE_ROWS.view(np.int32))),
                         _ptr(np.ascontiguousarray(DAA_WORDS.view(np.int32))), _ptr(out), n)
-    set_bits = sum(bin(s & ((1 << 253) - 1)).count("1") for s in DAA_SCAL)
-    assert _counts(shim) == (K.FIELD_MULS["daa_lanes"] * n + K.DAA_MULS_PER_SET_BIT * set_bits,
-                             K.FIELD_SQS["daa_lanes"] * n)
+    # what the select executes: an addition on every step
+    muls, sqs = K.k7_executed()
+    assert _counts(shim) == (muls * n, sqs * n)
     assert np.array_equal(out, k7_reference)
+    words = torch.from_numpy(DAA_WORDS.view(np.int32))
+    assert np.array_equal(out, K.daa_lanes(torch.from_numpy(LANE_ROWS.view(np.int32)), words).numpy())
 
 
 def test_cuh_fe15_tier_matches_pyref_field(shim):

@@ -9,6 +9,22 @@
 
 using namespace xhe;
 
+// K2 and K6 as windowed_lanes.cu and windowed_lanes_fe15.cu run them,
+// tables in a scratch of the kernels' layout: the T threads of a slot one
+// after the other, then thread 0's combine
+template <class F, int T>
+static void packed_slots(const int32_t *pts, const uint8_t *digits, int32_t *out, int S) {
+  std::vector<ge_niels_t<F>> tables((size_t)8 * K2_TABLE * S);
+  for (int s = 0; s < S; ++s) {
+    ge_t<F> parts[T];
+    for (int j = 0; j < T; ++j)
+      windowed_part_k8<F, T>(parts[j], tables.data() + (size_t)j * (8 / T) * K2_TABLE * S + s, S, pts, digits,
+                             S, s, j);
+    combine_parts<F, T>(parts);
+    ge_to_rows(out + 72 * s, parts[0]);
+  }
+}
+
 extern "C" {
 
 // K1's body on n encodings of 32 bytes, handed over as decompress.cu reads
@@ -39,34 +55,52 @@ void shim_reduce64(const uint64_t *t, uint32_t *out, int n) {
   }
 }
 
-// K2 as windowed_lanes.cu runs it, tables in a scratch of the kernel's
-// layout: the K2_SPLIT threads of a slot one after the other, then thread 0's
-// combine
 void shim_windowed_lanes_k8(const int32_t *pts, const uint8_t *digits, int32_t *out, int S) {
-  std::vector<ge_niels> tables((size_t)8 * K2_TABLE * S);
-  for (int s = 0; s < S; ++s) {
-    ge parts[K2_SPLIT];
-    for (int j = 0; j < K2_SPLIT; ++j)
-      windowed_part_k8<fe, K2_SPLIT>(parts[j], tables.data() + (size_t)j * (8 / K2_SPLIT) * K2_TABLE * S + s, S,
-                                     pts, digits, S, s, j);
-    combine_parts<fe, K2_SPLIT>(parts);
-    ge_to_rows(out + 72 * s, parts[0]);
-  }
+  packed_slots<fe, K2_SPLIT>(pts, digits, out, S);
 }
 
 int shim_k2_split(void) { return K2_SPLIT; }
 
-void shim_windowed_lanes_k8_fe15(const int32_t *pts, const uint8_t *digits, int32_t *out, int S) {
-  for (int s = 0; s < S; ++s) windowed_slot_k8<fe15>(out + 72 * s, pts, digits, S, s);
+// K6 at split 1 (the TPU kernel's order) or K6_SPLIT; -1 for another split
+int shim_windowed_lanes_k8_fe15(const int32_t *pts, const uint8_t *digits, int32_t *out, int S, int split) {
+  if (split == 1) {
+    packed_slots<fe15, 1>(pts, digits, out, S);
+  } else if (split == K6_SPLIT) {
+    packed_slots<fe15, K6_SPLIT>(pts, digits, out, S);
+  } else {
+    return -1;
+  }
+  return 0;
 }
+
+int shim_k6_split(void) { return K6_SPLIT; }
 
 void shim_windowed_lanes(const int32_t *pts, const uint8_t *digits, int32_t *out, int N) {
   for (int i = 0; i < N; ++i) windowed_lane(out + 72 * i, pts, digits, N, i);
 }
 
+// K7 as daa_lanes.cu runs it, the quad of a lane in lockstep: each round
+// for the four roles, then the exchange (every role reads the four results),
+// then the end of the step; each role writes its coordinate
 void shim_daa_lanes(const int32_t *pts, const int32_t *bits, int32_t *out, int N) {
-  for (int i = 0; i < N; ++i) daa_lane(out + 72 * i, pts, bits, N, i);
+  for (int i = 0; i < N; ++i) {
+    ge acc[K7_QUAD], base[K7_QUAD];
+    for (int r = 0; r < K7_QUAD; ++r) {
+      ge_identity(acc[r]);
+      ge_from_rows(base[r], pts + (size_t)i * 72);
+    }
+    for (int k = 0; k < 253; ++k) {
+      const bool bit = daa_bit(bits, N, i, k);
+      fe sqs[K7_QUAD], prs[K7_QUAD], dbls[K7_QUAD], adds[K7_QUAD];
+      for (int r = 0; r < K7_QUAD; ++r) daa_round1(sqs[r], prs[r], acc[r], base[r], r);
+      for (int r = 0; r < K7_QUAD; ++r) daa_round2(dbls[r], adds[r], sqs, prs, r);
+      for (int r = 0; r < K7_QUAD; ++r) daa_step_end(acc[r], base[r], dbls, adds, bit);
+    }
+    for (int r = 0; r < K7_QUAD; ++r) daa_write(out + (size_t)i * 72, acc[r], r);
+  }
 }
+
+int shim_k7_quad(void) { return K7_QUAD; }
 
 // n field elements of 18 limbs each on the 15-bit tier: f * g by fe_mul, f^2
 // by fe_sq, f - g by fe_sub, each as a canonical row

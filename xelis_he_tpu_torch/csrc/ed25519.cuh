@@ -859,16 +859,17 @@ static XHE_HD void tree_node(ge_t<F> *buf, int i, int h) {
 // -- K2 / K6: slot s of pts (8, S, 4, 18) and digits (8, 64, S) is
 // sum_{k<8} s_k P_k.  The slot's 8 subs are split over T threads: thread j
 // owns subs [j 8/T, (j+1) 8/T) and runs its own accumulator, and the T
-// partial sums are added at the end.  K2 runs T = K2_SPLIT; K6 runs the
-// undivided body (T = 1), the order K2 had before its split.
+// partial sums are added at the end.  K2 runs T = K2_SPLIT on the default
+// tier, K6 T = K6_SPLIT on fe15.
 //
 // A sub's table holds 9 niels entries, entry a = aP (entry 0 the identity,
 // which stored digit 8, e = 0, picks).  Entry a of a thread's sub kk lies at
-// table[(9 kk + a) stride]: K2 keeps the tables in a device scratch with the
-// stride S (one slot's entry is 160 contiguous bytes), K6 in a local array
-// with the stride 1.
+// table[(9 kk + a) stride]: both kernels keep the tables in a device scratch
+// with the stride S, so one slot's entry is contiguous (160 bytes on the
+// default tier, 288 on fe15).
 
 constexpr int K2_SPLIT = 2;  // threads a slot of K2 (ops/kernels.py K2_SPLIT)
+constexpr int K6_SPLIT = 4;  // threads a slot of K6 (ops/kernels.py K6_SPLIT)
 constexpr int K2_TABLE = 9;  // niels entries a sub: 0P..8P
 
 template <class F>
@@ -947,16 +948,6 @@ static XHE_HD void combine_parts(ge_t<F> *parts) {
     for (int i = 0; i < h; ++i) tree_node(parts, i, h);
 }
 
-// K6 body: the undivided slot, its tables in a local array -> out (4, 18)
-template <class F>
-static XHE_HD void windowed_slot_k8(int32_t *out, const int32_t *pts, const uint8_t *digits,
-                                    int S, int s) {
-  ge_niels_t<F> table[8 * K2_TABLE];
-  ge_t<F> acc;
-  windowed_part_k8<F, 1>(acc, table, 1, pts, digits, S, s, 0);
-  ge_to_rows(out, acc);
-}
-
 // -- K3: a tile of rows is cut into sub-tiles of K3_SUB rows (the whole tile
 // when it is smaller).  Each sub-tile is reduced by the tree, and the
 // sub-tiles' partial sums by the tree again.
@@ -1015,28 +1006,106 @@ static XHE_HD void windowed_lane(int32_t *out, const int32_t *pts, const uint8_t
   ge_to_rows(out, acc);
 }
 
-// The unified addition as a real call.  K7's loop needs it: with the addition
-// inlined under the loop's bit test, cicc of CUDA 12.9 ends in a segmentation
-// fault (with or without the unroll pragmas and the launch bounds); behind a
-// call the same loop builds.
-static XHE_NOINLINE void ge_add_call(ge &r, const ge &p, const ge &q) { ge_add(r, p, q); }
-
-// K7 body: lane i of pts (N, 4, 18) and bit words (8, N) -> out (4, 18) =
+// -- K7: lane i of pts (N, 4, 18) and bit words (8, N) -> out (4, 18) =
 // s_i * P_i by binary double-and-add over bits 0..252, LSB first: words 0-6
-// give 32 bits each and word 7 gives 29; bits 253-255 are ignored.  Scalars
-// are public, so the addition is a branch on the bit; the unified addition
-// is complete, so the identity and equal points need no special case.
-static XHE_HD void daa_lane(int32_t *out, const int32_t *pts, const int32_t *bits, int N, int i) {
-  ge acc, base;
-  ge_identity(acc);
-  ge_from_rows(base, pts + (size_t)i * 72);
-#pragma unroll 1
-  for (int k = 0; k < 253; ++k) {
-    const uint32_t w = (uint32_t)bits[(size_t)(k >> 5) * N + i];
-    if ((w >> (k & 31)) & 1u) ge_add_call(acc, acc, base);
-    ge_dbl(base, base, true);
-  }
-  ge_to_rows(out, acc);
+// give 32 bits each and word 7 gives 29; bits 253-255 are ignored.  Each of
+// the 253 steps adds the running base into acc (the unified addition,
+// selected by the bit) and doubles the base (the doubling, T kept).
+//
+// A lane is held by a quad of threads, roles r = 0..3, each holding both
+// points whole.  The addition and the doubling each fall into two rounds of
+// four independent field operations (Hisil, Wong, Carter, Dawson 2008, the
+// 4-processor form), and the doubling of the base is independent of the
+// addition that reads it, so a step is two rounds in which thread r takes
+// the r-th operation of each:
+//   round 1: X^2, Y^2, Z^2, (X+Y)^2 of base, and (Y1-X1)(Y2-X2),
+//            (Y1+X1)(Y2+X2), T1 2d T2 (two products, role 2), 2Z1 Z2 of
+//            acc + base;
+//   round 2: E F, G H, F G, E H of each, from the four values of round 1.
+// After each round every thread gathers the quad's four results (the
+// kernel's exchange), so the E..H adds are repeated on each thread.  The
+// operands are picked by role with data selects, not branches, so the quad
+// runs one instruction stream; only role 2's second product is a branch.
+// The formulas, their order and the association of T1 2d T2 are those of
+// ge_dbl and ge_add, so every value equals theirs limb for limb.
+
+constexpr int K7_QUAD = 4;  // threads a lane of K7
+
+// h = the r-th of a, b, c, d
+static XHE_HD void fe_pick4(fe &h, int r, const fe &a, const fe &b, const fe &c, const fe &d) {
+#pragma unroll
+  for (int i = 0; i < 10; ++i) h.v[i] = r == 0 ? a.v[i] : r == 1 ? b.v[i] : r == 2 ? c.v[i] : d.v[i];
+}
+
+// bit k of lane i's scalar
+static XHE_HD bool daa_bit(const int32_t *bits, int N, int i, int k) {
+  return ((uint32_t)bits[(size_t)(k >> 5) * N + i] >> (k & 31)) & 1u;
+}
+
+// round 1, role r: sq = its squaring of the doubling of base, pr = its
+// product of the addition acc + base
+static XHE_HD void daa_round1(fe &sq, fe &pr, const ge &acc, const ge &base, int r) {
+  fe u, v, xy, d2;
+  fe_add(xy, base.X, base.Y);
+  fe_pick4(u, r, base.X, base.Y, base.Z, xy);
+  fe_sq(sq, u);
+  fe ymx, ypx, zz;
+  fe_sub(ymx, acc.Y, acc.X);
+  fe_add(ypx, acc.Y, acc.X);
+  fe_add(zz, acc.Z, acc.Z);
+  fe_pick4(u, r, ymx, ypx, acc.T, zz);
+  fe_sub(ymx, base.Y, base.X);
+  fe_add(ypx, base.Y, base.X);
+  fe_d2(d2);
+  fe_pick4(v, r, ymx, ypx, d2, base.Z);
+  fe_mul(pr, u, v);
+  if (r == 2) fe_mul(pr, pr, base.T);
+}
+
+// E, F, G, H from round 1's four values of one operation, and role r's
+// product of round 2 (X3 = E F, Y3 = G H, Z3 = F G, T3 = E H)
+static XHE_HD void daa_round2_one(fe &out, const fe &e, const fe &f, const fe &g, const fe &h, int r) {
+  fe u, v;
+  fe_pick4(u, r, e, g, f, e);
+  fe_pick4(v, r, f, h, g, h);
+  fe_mul(out, u, v);
+}
+
+// round 2, role r, from the quad's round-1 results sq[4] and pr[4]: dbl and
+// add are its coordinates of the doubled base and of acc + base
+static XHE_HD void daa_round2(fe &dbl, fe &add, const fe sq[4], const fe pr[4], int r) {
+  fe c, e, f, g, h;
+  fe_add(c, sq[2], sq[2]);  // ge_dbl: a, b, c, (X+Y)^2 = sq[0..3]
+  fe_add(h, sq[0], sq[1]);
+  fe_sub(e, h, sq[3]);
+  fe_sub(g, sq[0], sq[1]);
+  fe_add(f, c, g);
+  daa_round2_one(dbl, e, f, g, h, r);
+  fe_sub(e, pr[1], pr[0]);  // ge_add: a, b, c, d = pr[0..3]
+  fe_sub(f, pr[3], pr[2]);
+  fe_add(g, pr[3], pr[2]);
+  fe_add(h, pr[1], pr[0]);
+  daa_round2_one(add, e, f, g, h, r);
+}
+
+// the end of a step, from the quad's round-2 results: base doubled, acc
+// replaced by acc + base where the bit is set
+static XHE_HD void daa_step_end(ge &acc, ge &base, const fe dbl[4], const fe add[4], bool bit) {
+  base.X = dbl[0];
+  base.Y = dbl[1];
+  base.Z = dbl[2];
+  base.T = dbl[3];
+  fe_select(acc.X, bit, add[0], acc.X);
+  fe_select(acc.Y, bit, add[1], acc.Y);
+  fe_select(acc.Z, bit, add[2], acc.Z);
+  fe_select(acc.T, bit, add[3], acc.T);
+}
+
+// role r writes coordinate r of acc: its canonical row of 18 limbs at out + 18 r
+static XHE_HD void daa_write(int32_t *out, const ge &acc, int r) {
+  fe c;
+  fe_pick4(c, r, acc.X, acc.Y, acc.Z, acc.T);
+  fe_to_row15(out + 18 * r, c);
 }
 
 }  // namespace xhe

@@ -36,7 +36,7 @@ SIGNATURES = {
     "tile_sums": ("xhe_tile_sums", [_vp, _vp, _vp, _vp, _int, _int, _vp]),
     "compress": ("xhe_compress", [_vp, _vp, _int, _vp]),
     "windowed_lane": ("xhe_windowed_lanes", [_vp, _vp, _vp, _int, _vp]),
-    "windowed_lanes_fe15": ("xhe_windowed_lanes_k8_fe15", [_vp, _vp, _vp, _int, _vp]),
+    "windowed_lanes_fe15": ("xhe_windowed_lanes_k8_fe15", [_vp, _vp, _vp, _vp, _int, _vp]),
     "daa_lanes": ("xhe_daa_lanes", [_vp, _vp, _vp, _int, _vp]),
 }
 

@@ -39,10 +39,12 @@ from .msm import _tree_reduce
 
 K_PACK = 8  # scalar-muls packed into one slot of K2
 K2_SPLIT = 2  # threads a slot of K2 (csrc/ed25519.cuh K2_SPLIT)
+K6_SPLIT = 4  # threads a slot of K6 (csrc/ed25519.cuh K6_SPLIT)
 K2_TABLE = 9  # niels entries a sub of K2, 0P..8P (its scratch: K_PACK x K2_TABLE a slot)
 TILE = 512  # lanes per tile of K3
 K3_SUB = 64  # rows a block of K3 reduces (csrc/ed25519.cuh K3_SUB)
 GE_WORDS = 40  # 32-bit words of a point or niels entry in the kernels' radix 2^25.5
+GE15_WORDS = 72  # the same on K6's 15-bit tier
 QTILE = 256  # slot granule of the signature lanes
 N_WINDOWS = 64  # signed 4-bit windows of a scalar < 2^253
 
@@ -81,20 +83,36 @@ MULADDS_PER_FIELD_MUL15 = 341
 MULADDS_PER_FIELD_SQ15 = 188
 
 
-# What K2 executes a slot when the slot is split over ``split`` threads:
-# each thread doubles its own accumulator (the 256 doublings of a slot are
-# 832 multiplications and 1,024 squarings), and the partial sums meet in
-# split - 1 unified additions of 9 multiplications.  The bound keeps
+# What K2 and K6 execute a slot when the slot is split over ``split``
+# threads: each thread doubles its own accumulator (the 256 doublings of a
+# slot are 832 multiplications and 1,024 squarings), and the partial sums
+# meet in split - 1 unified additions of 9 multiplications.  The bound keeps
 # FIELD_MULS / FIELD_SQS, the work of the function: the extra doublings are
 # the cost of the design.
-K2_DOUBLING_MULS, K2_DOUBLING_SQS = 832, 1024
+SLOT_DOUBLING_MULS, SLOT_DOUBLING_SQS = 832, 1024
+
+
+def _split_executed(name: str, split: int) -> tuple[int, int]:
+    extra = split - 1
+    return (FIELD_MULS[name] + extra * (SLOT_DOUBLING_MULS + FIELD_MULS["tile_sums"]),
+            FIELD_SQS[name] + extra * SLOT_DOUBLING_SQS)
 
 
 def k2_executed(split: int = K2_SPLIT) -> tuple[int, int]:
     """(field multiplications, squarings) K2 executes a slot at ``split``."""
-    extra = split - 1
-    return (FIELD_MULS["windowed_lanes_k8"] + extra * (K2_DOUBLING_MULS + FIELD_MULS["tile_sums"]),
-            FIELD_SQS["windowed_lanes_k8"] + extra * K2_DOUBLING_SQS)
+    return _split_executed("windowed_lanes_k8", split)
+
+
+def k6_executed(split: int = K6_SPLIT) -> tuple[int, int]:
+    """(field multiplications, squarings) K6 executes a slot at ``split``."""
+    return _split_executed("windowed_lanes_k8_fe15", split)
+
+
+def k7_executed() -> tuple[int, int]:
+    """(field multiplications, squarings) K7 executes a lane: the addition
+    is computed on every one of the 253 steps and selected by the bit.  The
+    bound counts an addition only where a bit is set."""
+    return FIELD_MULS["daa_lanes"] + N_BITS * DAA_MULS_PER_SET_BIT, FIELD_SQS["daa_lanes"]
 
 
 # What K1 executes an encoding: the function's work, and the values it
@@ -266,9 +284,9 @@ def windowed_lanes_k8_plain(points: torch.Tensor, digits: torch.Tensor) -> torch
 
 
 def windowed_lanes_k8_fe15_plain(points: torch.Tensor, digits: torch.Tensor) -> torch.Tensor:
-    """K6's order: one accumulator a slot (the torch Field is itself an
-    18 x 15-bit tier, so this is K6's arithmetic in tensor form)."""
-    return packed_slots_plain(points, digits, 1)
+    """K6's order: the slot split over K6_SPLIT threads (the torch Field is
+    itself an 18 x 15-bit tier, so this is K6's arithmetic in tensor form)."""
+    return packed_slots_plain(points, digits, K6_SPLIT)
 
 
 def windowed_lanes_plain(points: torch.Tensor, digits: torch.Tensor) -> torch.Tensor:
@@ -359,7 +377,7 @@ def decompress(enc: torch.Tensor):
 def windowed_lanes_k8(points: torch.Tensor, digits: torch.Tensor) -> torch.Tensor:
     """K2: points (8, S, 4, 18) int32, digits (8, 64, S) uint8 (e + 8) ->
     (S, 4, 18) int32 canonical slot sums.  The kernel builds its niels
-    tables in a scratch the wrapper allocates (``k2_tables``)."""
+    tables in a scratch the wrapper allocates (``slot_tables``)."""
     S = points.shape[1]
     _expect(points, torch.int32, (K_PACK, S, 4, NLIMBS), "lane points")
     _expect(digits, torch.uint8, (K_PACK, N_WINDOWS, S), "lane digits")
@@ -367,18 +385,20 @@ def windowed_lanes_k8(points: torch.Tensor, digits: torch.Tensor) -> torch.Tenso
         return windowed_lanes_k8_plain(points, digits)
     out = torch.empty((S, 4, NLIMBS), dtype=torch.int32, device=points.device)
     if S:
-        tables = k2_tables(S, points.device)
+        tables = slot_tables(S, GE_WORDS, points.device)
         _launch("windowed_lanes_k8", "windowed_lanes", points, digits, out, tables, S)
     return out
 
 
-def k2_tables(S: int, device) -> torch.Tensor:
-    """K2's scratch: the niels tables of S slots (8 subs x 9 entries each)."""
-    return torch.empty((K_PACK * K2_TABLE * S, GE_WORDS), dtype=torch.int32, device=device)
+def slot_tables(S: int, words: int, device) -> torch.Tensor:
+    """K2's and K6's scratch: the niels tables of S slots (8 subs x 9
+    entries of ``words`` 32-bit words each)."""
+    return torch.empty((K_PACK * K2_TABLE * S, words), dtype=torch.int32, device=device)
 
 
 def windowed_lanes_k8_fe15(points: torch.Tensor, digits: torch.Tensor) -> torch.Tensor:
-    """K6: K2's function and shapes on the 15-bit field tier."""
+    """K6: K2's function and shapes on the 15-bit field tier, its niels
+    tables in a scratch of ``slot_tables``."""
     S = points.shape[1]
     _expect(points, torch.int32, (K_PACK, S, 4, NLIMBS), "lane points")
     _expect(digits, torch.uint8, (K_PACK, N_WINDOWS, S), "lane digits")
@@ -386,7 +406,8 @@ def windowed_lanes_k8_fe15(points: torch.Tensor, digits: torch.Tensor) -> torch.
         return windowed_lanes_k8_fe15_plain(points, digits)
     out = torch.empty((S, 4, NLIMBS), dtype=torch.int32, device=points.device)
     if S:
-        _launch("windowed_lanes_k8_fe15", "windowed_lanes_fe15", points, digits, out, S)
+        tables = slot_tables(S, GE15_WORDS, points.device)
+        _launch("windowed_lanes_k8_fe15", "windowed_lanes_fe15", points, digits, out, tables, S)
     return out
 
 
