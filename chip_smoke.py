@@ -7,7 +7,7 @@
 Phases, each of which fails the run loudly:
 
 1. card: the CUDA device's name, power limit and maximum SM clock;
-2. build: nvcc compiles the seven kernels of xelis_he_tpu_torch/csrc (K1-K7),
+2. build: nvcc compiles the eight kernels of xelis_he_tpu_torch/csrc (K1-K8),
    one process each, side by side;
 3. kernels vs plain: each kernel's wrapper on the card against its plain
    PyTorch version on the card, on edge cases (bit-exact: every output is
@@ -16,9 +16,10 @@ Phases, each of which fails the run loudly:
    also at counts at and around their blocks' edges, K4 on 4-torsion cosets
    with Z != 1 (both branches of its encode's rotation and sign flip), K2
    and K6 at a ragged slot count, K3 at tiles from 1 to 1024, K7 at lane
-   counts that leave a quad of threads or a warp partly filled; ptxas must
-   report no spills for K1 and K4, and its figures for K6 and K7 are
-   printed;
+   counts that leave a quad of threads or a warp partly filled, K8 at 1 to
+   8,193 lanes with either side broadcast or neither (sums and encodings);
+   ptxas must report no spills for K1 and K4, and its figures for K6, K7
+   and K8 are printed;
 4. main path: a block of ``--txs`` one-transfer transactions, built as
    bench.py builds it, verified through xelis_he_tpu_torch.verify_batch on
    ``Accelerator()``: one counted verify (launch counts, synchronising calls,
@@ -39,14 +40,24 @@ Phases, each of which fails the run loudly:
 9. the Python block path: the first 2,000 transactions of the block with
    XELIS_NATIVE_PREVERIFY=0 (``_fused_deferred``): accepted, no host-path
    block, one synchronising call;
-10. kernel times: each kernel on the inputs of its largest launch on its
+10. the fused block without the fold library: the whole block with
+    ``hashcore.verifyfold_native`` made to fail its import and
+    XELIS_NATIVE_PREVERIFY=0 (``fused_block_begin`` / ``fused_block_finish``):
+    K1, K5, K3 and K4 and no other kernel, one pull, the default verify's
+    balances, ``fused_block_check`` giving begin/finish's flags, and a
+    tampered signature rejected as such;
+11. ECDLP: an l1 = 22 table built on the card (K8), sampled entries against
+    pyref, a flat save/load round trip, ``par_decode`` of 16 values in
+    [0, 2^44) at 8,192 lanes a round, one with a negative ``range_min`` and
+    one out of range (None);
+12. kernel times: each kernel on the inputs of its largest launch on its
     path, as device time (torch.profiler's records of it over 5 calls) and
     as the time of a call in a run of 10 back to back (CUDA events: for a
     small kernel that is mostly the host's launch cost), beside its plain
     version's time (CUDA events around one call, median of 3) and the card's
     bound; K3 also at every other shape the path launches it at (the group
-    sums of ``sum_points`` among them);
-11. trace: one more default verify under torch.profiler, whose CUDA activity
+    sums of ``sum_points`` among them), K5 also at the fused block's launch;
+13. trace: one more default verify under torch.profiler, whose CUDA activity
     gives the device's busy time and idle share during a verify.
 
 Every path is driven with the launch counts set to 0 just before it and read
@@ -105,13 +116,18 @@ KERNELS = {
                                "xelis_he_tpu/ops/pallas_msm.py:1364", "windowed_lanes_k8_fe15_kernel"),
     "daa_lanes": ("xelis_he_tpu_torch/csrc/daa_lanes.cu", "xelis_he_tpu/ops/pallas_msm.py:411",
                   "daa_lanes_kernel"),
+    # no Pallas kernel: the JAX package's ECDLP adds and encodes in XLA
+    "add_compress": ("xelis_he_tpu_torch/csrc/add_compress.cu", "xelis_he_tpu/ecdlp.py:228",
+                     "add_compress_kernel"),
 }
 # the library (csrc/<name>.cu, ops/_build.py) each kernel is built into
 LIBS = {name: pathlib.Path(src).stem for name, (src, _, _) in KERNELS.items()}
 # kernels whose ptxas figures the build phase and --kernels-from print
-BUILD_FIGURES = ("decompress", "compress", "windowed_lanes_k8_fe15", "daa_lanes")
-# the kernels of the default verify (phase 4); the others run on the paths of phases 6-9
+BUILD_FIGURES = ("decompress", "compress", "windowed_lanes_k8_fe15", "daa_lanes", "add_compress")
+# the kernels of the default verify (phase 4); the others run on the paths of phases 6-11
 DEFAULT_PATH = ("decompress", "windowed_lanes_k8", "tile_sums", "compress")
+# the kernels of the fused block without the fold library (phase 10)
+FUSED_PATH = ("decompress", "windowed_lanes", "tile_sums", "compress")
 EDGE_SCALARS = [0, 1, L - 1, L - 1, (1 << 253) - 1, 2, L - 2, 1 << 128]  # tests/test_fe13.py's
 
 
@@ -454,8 +470,52 @@ def check_kernels(rng: random.Random, device) -> dict:
         ref = IDENTITY if 24 <= i < 32 else multiscalar_mul([daa_scal[i] & ((1 << 253) - 1)], [pool_pts[lane_pick[i]]])
         if bytes(daa_enc[i]) != ref.compress():
             raise AssertionError(f"K7 lane {i} disagrees with pyref")
+
+    errs["add_compress"] = check_add_compress(rng, device, torch.cat([rows[good], dev_rows(host)]),
+                                              [pts[i] for i in good] + host, tors, host[:64] + [IDENTITY])
     torch.cuda.synchronize()
     return errs
+
+
+K8_COUNTS = (1, 127, 128, 129, 4096, 8193)  # K8's lanes: a block's edges, a table chunk, a decode round
+
+
+def check_add_compress(rng: random.Random, device, pool_rows, pool_pts, tors, tors_pts) -> tuple[int, int]:
+    """K8 against its plain version, bit for bit (encodings and sums), at
+    K8_COUNTS lanes with side a broadcast, side b broadcast and neither, on
+    addends drawn from K1 rows (Z = 1), host points (Z != 1), the identity
+    and the 4-torsion cosets of K4's check (Z scaled); every sum kept, and
+    at the largest count also only the last (a decode round); encodings of
+    sampled lanes against pyref."""
+    import torch
+
+    from xelis_he_tpu_torch.ops import kernels as K
+    from xelis_he_tpu_torch.pyref.ristretto import IDENTITY
+
+    rows = torch.cat([pool_rows, tors, K.identity_rows(1, device)])
+    pts = pool_pts + [q for q in tors_pts for _ in range(4)] + [IDENTITY]
+    n = max(K8_COUNTS)
+    pick = [[rng.randrange(len(pts)) for _ in range(n)] for _ in range(2)]
+    pick[0][:4], pick[1][:4] = [len(pts) - 1] * 4, [len(pts) - 1, 0, len(pool_pts), len(pool_pts) + 1]
+    a, b = (rows[torch.tensor(p, device=device)].contiguous() for p in pick)
+    # broadcast rows: 4-torsion coset rows (Z scaled), as a cursor or step point
+    a_one, b_one = (rows[len(pool_pts) + k : len(pool_pts) + k + 1] for k in (1, 6))
+    results = []
+    for n_ in K8_COUNTS:
+        for what, a_, b_ in (("neither", a[:n_], b[:n_]), ("a broadcast", a_one, b[:n_]),
+                             ("b broadcast", a[:n_], b_one)):
+            a_, b_ = a_.contiguous(), b_.contiguous()
+            got, want = K.add_compress(a_, b_, 0), K.add_compress_plain(a_, b_, 0)
+            results += [expect_equal(f"K8 encodings, {n_} lanes, {what}", got[0], want[0]),
+                        expect_equal(f"K8 sums, {n_} lanes, {what}", got[1], want[1])]
+    got, want = K.add_compress(a[:1], b, n - 1), K.add_compress_plain(a[:1], b, n - 1)
+    results += [expect_equal("K8 encodings, the last sum kept", got[0], want[0]),
+                expect_equal("K8 the last sum", got[1], want[1])]
+    enc = K.add_compress(a, b)[0].cpu().numpy()
+    for i in sorted({*range(min(40, n)), n - 1}):
+        if bytes(enc[i]) != (pts[pick[0][i]] + pts[pick[1][i]]).compress():
+            raise AssertionError(f"K8 lane {i} disagrees with pyref")
+    return worst(*results)
 
 
 # ---------------------------------------------------------------------------
@@ -502,8 +562,12 @@ class Recorder:
         self.shapes = {}
 
     def __call__(self, *args):
-        packed = self.name in ("windowed_lanes_k8", "windowed_lanes_k8_fe15")
-        size = args[0].shape[1] if packed else args[0].shape[0]
+        if self.name in ("windowed_lanes_k8", "windowed_lanes_k8_fe15"):
+            size = args[0].shape[1]
+        elif self.name == "add_compress":
+            size = max(args[0].shape[0], args[1].shape[0])
+        else:
+            size = args[0].shape[0]
         if size > self.size:
             self.size = size
             self.args = tuple(a.clone() if hasattr(a, "clone") else a for a in args)
@@ -869,6 +933,181 @@ def python_path(txs, ledger, accel, n_txs: int = 2000) -> None:
     log(f"  metrics: {metrics.json_line()}")
 
 
+FOLD_LIBRARY = "xelis_he_tpu_torch.hashcore.verifyfold_native"
+
+
+def fused_block_path(txs, ledger, want_balances, clock_hz):
+    """Phase 10: the block through the fused block check, the fold library's
+    import made to fail and the native engine told not to take the block
+    (both restored after).  Returns the phase's figures."""
+    from xelis_he_tpu_torch import ProofVerificationError, verify_batch
+    from xelis_he_tpu_torch.metrics import metrics
+    from xelis_he_tpu_torch.ops import kernels as K
+    from xelis_he_tpu_torch.ops.accel import Accelerator
+
+    saved = sys.modules.get(FOLD_LIBRARY)
+    sys.modules[FOLD_LIBRARY] = None
+    os.environ["XELIS_NATIVE_PREVERIFY"] = "0"
+    try:
+        accel = Accelerator()
+
+        # the accepted block, fused_block_check beside begin/finish (also the warm-up)
+        seen = {}
+        begin, finish = accel.fused_block_begin, accel.fused_block_finish
+
+        def spy_begin(sigma, sig_entries):
+            seen["sigma"], seen["sig_entries"] = sigma, sig_entries
+            return begin(sigma, sig_entries)
+
+        def spy_finish(state, range_):
+            seen["phases"] = finish(state, range_)
+            seen["check"] = accel.fused_block_check(seen["sigma"], range_, seen["sig_entries"])
+            return seen["phases"]
+
+        def with_check(block):
+            seen.clear()
+            accel.fused_block_begin, accel.fused_block_finish = spy_begin, spy_finish
+            try:
+                verify_batch(block, ledger.clone(), accel=accel)
+            finally:
+                del accel.fused_block_begin, accel.fused_block_finish
+            return seen.get("phases"), seen.get("check")
+
+        t0 = time.perf_counter()
+        phases, check = with_check(txs)
+        log(f"  accepted block with fused_block_check beside it: {(time.perf_counter() - t0) * 1e3:.1f} ms; "
+            f"begin/finish flags {phases}, fused_block_check {check}")
+        if phases != check or phases != (True, True, True):
+            raise AssertionError("fused_block_check disagrees with begin/finish on the accepted block")
+
+        # the counted run
+        state = ledger.clone()
+        metrics.reset()
+        t0 = time.perf_counter()
+        _, launches, syncs, recs = counted(lambda: verify_batch(txs, state, accel=accel), ("windowed_lanes",))
+        ms = (time.perf_counter() - t0) * 1e3
+        snap = metrics.snapshot()
+        expect_launched(f"fused block, {len(txs)} txs", launches, FUSED_PATH,
+                        [k for k in launches if k not in FUSED_PATH])
+        if snap["span_counts"].get("fused_check.pull") != 1 or "verify_batch.range_fold" not in snap["span_counts"]:
+            raise AssertionError(f"the block did not go through the fused block check with one pull: {snap}")
+        if syncs != 1:
+            raise AssertionError(f"the fused block made {syncs} synchronising calls, not 1")
+        no_host_path_blocks()
+        if ledger_balances(state) != want_balances:
+            raise AssertionError("fused block: balances differ from the default verify's")
+        spans = {k: round(v * 1e3, 3) for k, v in sorted(snap["span_seconds"].items())}
+        log(f"  fused block: accepted in {ms:.1f} ms, {ms / len(txs):.4f} ms/tx, one pull, one synchronising "
+            f"call, balances equal to the default verify's")
+        log(f"  fused block spans, ms: {json.dumps(spans)}")
+        log(f"  fused block counters: {json.dumps(snap['counters'])}")
+        rec = recs["windowed_lanes"]
+        k5_ms = device_ms(lambda: K.windowed_lanes(*rec.args), KERNELS["windowed_lanes"][2])
+        shape, bound_ms, bound_by = bound("windowed_lanes", rec.args, clock_hz)
+        log(f"  K5 at the fused block's largest launch, {shape}: {k5_ms:.4f} ms on the device "
+            f"(bound {bound_ms:.5f} ms, {bound_by}), {launches['windowed_lanes']} launches")
+
+        # a tampered signature: rejected as such, fused_block_check alike
+        bad = list(txs)
+        bad[1] = copy.deepcopy(txs[1])
+        bad[1].signature.s = (bad[1].signature.s + 1) % L
+        try:
+            with_check(bad)
+        except ProofVerificationError as e:
+            if e.kind != "signature":
+                raise AssertionError(f"tampered signature rejected as {e.kind}") from e
+            log(f"  tampered signature: rejected ({e}); flags {seen.get('phases')}, "
+                f"fused_block_check {seen.get('check')}")
+        else:
+            raise AssertionError("fused block: a tampered signature was accepted")
+        if seen.get("phases") != seen.get("check") or seen.get("phases") != (True, True, False):
+            raise AssertionError("fused_block_check disagrees with begin/finish on the tampered block")
+    finally:
+        del os.environ["XELIS_NATIVE_PREVERIFY"]
+        if saved is None:
+            sys.modules.pop(FOLD_LIBRARY, None)
+        else:
+            sys.modules[FOLD_LIBRARY] = saved
+    fused = {"txs": len(txs), "ms": ms, "ms_per_tx": ms / len(txs), "spans_ms": spans,
+             "k5": {"shape": shape, "ms": k5_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                    "launches": launches["windowed_lanes"]}}
+    return fused
+
+
+def ecdlp_path(rng: random.Random, accel):
+    """Phase 11: an l1 = 22 table built on the card, checked and saved, and
+    par_decode at 8,192 lanes a round.  Returns (K8's launches, its
+    Recorder, the phase's figures)."""
+    import tempfile
+
+    import numpy as np
+
+    from xelis_he_tpu_torch import scalars
+    from xelis_he_tpu_torch.ecdlp import ECDLPArguments, ECDLPTables, par_decode
+    from xelis_he_tpu_torch.pyref.ristretto import mul_base
+
+    l1, batch = 22, 8192
+    values = [rng.randrange(1 << 44) for _ in range(16)]
+    neg = -rng.randrange(1, 1 << 39)
+    out = {}
+
+    def run():
+        t0 = time.perf_counter()
+        tables = ECDLPTables.build(l1, accel=accel)
+        out["build_s"] = time.perf_counter() - t0
+        args = ECDLPArguments(0, 1 << 44)
+        t0 = time.perf_counter()
+        got = [par_decode(tables, mul_base(m), args, accel=accel, batch=batch) for m in values]
+        out["decode_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        got_neg = par_decode(tables, mul_base(neg % scalars.L), ECDLPArguments(-(1 << 40), 1 << 40),
+                             accel=accel, batch=batch)
+        out["negative_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        got_none = par_decode(tables, mul_base((1 << 44) + 12345), args, accel=accel, batch=batch)
+        out["out_of_range_s"] = time.perf_counter() - t0
+        return tables, got, got_neg, got_none
+
+    (tables, got, got_neg, got_none), launches, _, recs = counted(run, ("add_compress",))
+    expect_launched("ECDLP build and decode", launches, ("add_compress",),
+                    [k for k in launches if k != "add_compress"])
+    count = 1 << l1
+    log(f"  table l1 = {l1}: {count} baby steps, {tables.keys.nbytes + tables.idx.nbytes} bytes, "
+        f"built in {out['build_s']:.2f} s ({count // 4096} K8 launches of 4,096 lanes, one pull, host sort)")
+    inv = np.empty(count, dtype=np.int64)
+    inv[tables.idx] = np.arange(count)
+    edges = [0, 1, 4095, 4096, 4097, count - 1]  # the identity, a chunk's edges, the last step
+    sample = edges + [rng.randrange(count) for _ in range(1024 - len(edges))]
+    for i in sample:
+        if int(tables.keys[inv[i]]) != int.from_bytes(mul_base(i).compress()[:8], "little"):
+            raise AssertionError(f"ECDLP table entry {i} disagrees with pyref")
+    if not np.all(tables.keys[1:] >= tables.keys[:-1]):
+        raise AssertionError("ECDLP table keys are not sorted")
+    log(f"  {len(sample)} sampled entries equal pyref's mul_base(i).compress()[:8]")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = pathlib.Path(tmp) / "tables.bin"
+        tables.save_flat(path)
+        loaded = ECDLPTables.load_flat(path)
+        if not (np.array_equal(loaded.keys, tables.keys) and np.array_equal(loaded.idx, tables.idx)):
+            raise AssertionError("ECDLP flat table round trip changed the table")
+        probe = values[0] % (1 << 30)
+        if par_decode(loaded, mul_base(probe), ECDLPArguments(0, 1 << 30), accel=accel, batch=batch) != probe:
+            raise AssertionError("par_decode through the loaded table failed")
+    log(f"  flat save/load round trip: {16 + 12 * count} bytes, equal, decodes")
+    if got != values:
+        raise AssertionError(f"par_decode: {got} != {values}")
+    if got_neg != neg:
+        raise AssertionError(f"par_decode with a negative range_min: {got_neg} != {neg}")
+    if got_none is not None:
+        raise AssertionError(f"par_decode of a value out of range gave {got_none}")
+    rounds = (1 << 44) // (count * batch)
+    out.update({"l1": l1, "batch": batch, "decodes_per_s": len(values) / out["decode_s"], "rounds_full_walk": rounds})
+    log(f"  par_decode: 16 values in [0, 2^44) at {batch} lanes a round ({rounds} rounds a full walk) in "
+        f"{out['decode_s']:.2f} s, {out['decodes_per_s']:.2f} decodes a second; negative range_min "
+        f"({neg}) in {out['negative_s']:.2f} s; out of range -> None, every round, in {out['out_of_range_s']:.2f} s")
+    return launches["add_compress"], recs["add_compress"], out
+
+
 def trace_verify(txs, ledger, accel) -> dict:
     """Phase 7: one verify under torch.profiler (CUDA activity only).  The
     device is busy for the union of the traced kernels' and copies'
@@ -938,6 +1177,12 @@ def bound(name, args, clock_hz) -> tuple[str, float, str]:
         n = args[0].shape[0]
         set_bits = set_bits_253(args[1])
         items, nbytes, shape = n, n * (288 + 32 + 288), f"{n} lanes, {set_bits} set bits"
+    elif name == "add_compress":
+        a, b, sums_from = args
+        n = max(a.shape[0], b.shape[0])
+        kept = 0 if sums_from is None else n - sums_from
+        items, nbytes = n, (a.shape[0] + b.shape[0] + kept) * 288 + n * 32
+        shape = f"{n} lanes ({a.shape[0]} + {b.shape[0]} rows, {kept} sums kept)"
     else:
         n = args[0].shape[0]
         items, nbytes, shape = n, n * (288 + 32), f"{n} points"
@@ -1212,7 +1457,7 @@ def main() -> int:
     # spills; K6's and K7's figures beside them
     builds = {}
     block_threads = {"decompress": 128, "compress": 128, "windowed_lanes_k8_fe15": 32 * K.K6_SPLIT,
-                     "daa_lanes": 32}
+                     "daa_lanes": 32, "add_compress": 128}
     for name in BUILD_FIGURES:
         threads = block_threads[name]
         info = ptxas_info(_build.ptxas_log[LIBS[name]], KERNELS[name][2])
@@ -1239,15 +1484,22 @@ def main() -> int:
     signatures_and_conversions(block[0], accel)
     log("the Python block path (XELIS_NATIVE_PREVERIFY=0):")
     python_path(*block, accel)
+    log("the fused block without the fold library (no verifyfold_native, XELIS_NATIVE_PREVERIFY=0):")
+    fused = fused_block_path(*block, balances, clock_hz)
+    log("ECDLP:")
+    launches["add_compress"], recorders["add_compress"], ecdlp = ecdlp_path(random.Random(args.seed + 2), accel)
 
     log("kernel times at each kernel's largest launch on its path:")
     rows = kernel_line(recorders, launches, errs, clock_hz)
     for r in rows:
         if r["name"] in builds:
             r["build"] = builds[r["name"]]
+        if r["name"] == "windowed_lanes":
+            r["variants"] = [{"what": "the fused block's largest launch", **fused["k5"]}]
     log("trace of one verify:")
     trace = trace_verify(*block, accel)
-    print(json.dumps({"kernels": rows, "txs": args.txs, **per_tx, "trace": trace}), flush=True)
+    print(json.dumps({"kernels": rows, "txs": args.txs, **per_tx, "fused_block": fused, "ecdlp": ecdlp,
+                      "trace": trace}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

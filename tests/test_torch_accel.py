@@ -230,7 +230,14 @@ def test_k1_and_k4_receive_exactly_the_real_count(accel, monkeypatch, n):
 
 
 def test_methods_that_still_wait_name_their_roadmap_item(accel):
-    for call in (lambda: accel.fused_block_begin(([], []), []), lambda: accel.fused_block_finish(None, ([], [])),
-                 lambda: accel.fused_block_check(([], []), ([], []), [])):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 7"):
-            call()
+    """The fused block check (ROADMAP queue 1, item 7) is ported: empty
+    groups sum to the identity with one K3 call over the lane tiles and
+    none for absent signatures; a range group that does not cancel lowers
+    its flag alone, in one dispatch and in two phases."""
+    P = mul_base(5)
+    with plain_calls() as calls:
+        assert accel.fused_block_check(([], []), ([], []), []) == (True, True, True)
+    assert (calls["windowed_lanes"], calls["tile_sums"], calls["compress"]) == (1, 1, 1)
+    sigma, range_ = ([3, L - 3], [P, P]), ([1], [P])
+    assert accel.fused_block_check(sigma, range_, []) == (True, False, True)
+    assert accel.fused_block_finish(accel.fused_block_begin(sigma, []), range_) == (True, False, True)

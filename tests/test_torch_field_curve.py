@@ -238,3 +238,44 @@ def test_curve_decompress_matches_numpy_curve_and_rejects_invalid():
     rows = point_to_rows(pt_t, TF)
     assert rows.shape == (data.shape[0], 4, 18)
     assert _enc(TC.to_points(rows_to_point(rows))) == _enc(TC.to_points(pt_t))
+
+
+def test_from_uniform_bytes_matches_numpy_curve_and_pyref():
+    """Elligator2 on 32 random 64-byte blobs and on the blob that derives the
+    Pedersen base H (sha3-512 of G's encoding), limb for limb against the
+    numpy curve and by encoding against pyref."""
+    import hashlib
+
+    from xelis_he_tpu.pyref.ristretto import RistrettoPoint
+
+    h_blob = hashlib.sha3_512(BASEPOINT.compress()).digest()
+    blobs = np.concatenate([RNG.integers(0, 256, size=(32, 64), dtype=np.uint8),
+                            np.frombuffer(h_blob, np.uint8)[None]])
+    got_np, got_t = NC.from_uniform_bytes(blobs), TC.from_uniform_bytes(torch.from_numpy(blobs))
+    for a, b in zip(got_np, got_t):
+        _same(a, b)
+    want = [RistrettoPoint.from_uniform_bytes(bytes(b)) for b in blobs]
+    assert _enc(TC.to_points(got_t)) == _enc(want)
+    from xelis_he_tpu.elgamal import H
+
+    assert TC.to_points(tuple(c[-1:] for c in got_t))[0].compress() == H.compress()
+
+
+def test_curve_eq_and_cneg_match_numpy_curve():
+    """eq: each point against itself rescaled, its negation (equal only for
+    the identity) and the reversed list; cneg on every other point."""
+    p_np, p_t = _batch(PTS)
+    q_np, q_t = _batch(QTS)
+    lam_np, lam_t = _pair(_rand_ints(len(PTS)))
+    s_np, s_t = tuple(NF.mul(c, lam_np) for c in p_np), tuple(TF.mul(c, lam_t) for c in p_t)
+    for (a_np, a_t), (b_np, b_t) in (((p_np, p_t), (s_np, s_t)), ((p_np, p_t), (q_np, q_t)),
+                                     ((p_np, p_t), (NC.neg(p_np), TC.neg(p_t)))):
+        assert TC.eq(a_t, b_t).tolist() == NC.eq(a_np, b_np).tolist()
+    assert TC.eq(p_t, s_t).all()
+    assert TC.eq(p_t, q_t).tolist() == [a.compress() == b.compress() for a, b in zip(PTS, QTS)]
+    assert TC.eq(p_t, TC.neg(p_t)).tolist() == [p.is_identity() for p in PTS]
+    cond = np.arange(len(PTS)) % 2 == 1
+    got_np, got_t = NC.cneg(cond, p_np), TC.cneg(torch.from_numpy(cond), p_t)
+    for a, b in zip(got_np, got_t):
+        _same(a, b)
+    assert _enc(TC.to_points(got_t)) == _enc([-p if c else p for p, c in zip(PTS, cond)])

@@ -4,13 +4,13 @@ its copy of the host layer has not drifted from the JAX package's.
 The host layer (pyref, hashcore and its C++, transcripts, sigma and range
 proofs, the transaction model) imports no JAX, so the port keeps a
 byte-identical copy of it, with the package name changed and citations of
-the reference crate written as ``xelis-he/<path>``.  Only two edits are
-deliberate: the port's cache root (utils/cachedir.py) and ECDLP decoding,
-which is not ported yet (elgamal.py).  The modules of ``PORTED`` are rebuilt
-on torch, not copied: ops/msm.py keeps the double-and-add half of the engine
-(the Pippenger half waits), and tx/verify.py, beside the torch device glue,
-drops the JAX device pump, the small-block host crossover and the fused block
-check without the fold library (it raises, naming its ROADMAP item)."""
+the reference crate written as ``xelis-he/<path>``.  Only one edit is
+deliberate: the port's cache root (utils/cachedir.py).  The modules of
+``PORTED`` are rebuilt on torch, not copied: ops/msm.py keeps the
+double-and-add half of the engine (the Pippenger half waits), tx/verify.py,
+beside the torch device glue, drops the JAX device pump and the small-block
+host crossover, and ecdlp.py runs its table build and giant-step rounds on
+the port's add-and-compress kernel."""
 
 import ast
 import pathlib
@@ -25,7 +25,7 @@ PORT = REPO / "xelis_he_tpu_torch"
 JAX_PKG = REPO / "xelis_he_tpu"
 
 # modules rebuilt on torch rather than copied
-PORTED = {"__init__.py", "ops/fe.py", "ops/curve.py", "ops/msm.py", "ops/accel.py", "tx/verify.py"}
+PORTED = {"__init__.py", "ecdlp.py", "ops/fe.py", "ops/curve.py", "ops/msm.py", "ops/accel.py", "tx/verify.py"}
 # citations of the reference crate name a checkout directory in the JAX
 # package; the port writes them as paths inside the crate
 CITATION = re.compile(r"/\w+/reference/")
@@ -40,12 +40,6 @@ EDITS = {
          "        # the port's own subtree: never beside the JAX package's committed\n"
          "        # .cache/bpgens_*.bin files\n"
          '        return repo / ".cache" / "torch"\n'),
-    ],
-    "elgamal.py": [
-        (re.escape("        from .ecdlp import decode\n\n        return decode(tables, self.point, args)\n"),
-         '        raise NotImplementedError("ECDLP is ROADMAP queue 1")\n'),
-        (re.escape("        from .ecdlp import par_decode\n\n        return par_decode(tables, self.point, args)\n"),
-         '        raise NotImplementedError("ECDLP is ROADMAP queue 1")\n'),
     ],
 }
 

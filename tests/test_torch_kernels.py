@@ -448,8 +448,12 @@ def test_wrappers_check_shapes_and_devices():
     with pytest.raises(ValueError):
         K.windowed_lanes_k8_fe15(torch.zeros((8, 4, 4, 18), dtype=torch.int32),
                                  torch.zeros((8, 64, 4), dtype=torch.int32))
+    with pytest.raises(ValueError):
+        K.add_compress(torch.zeros((3, 4, 18), dtype=torch.int32), torch.zeros((2, 4, 18), dtype=torch.int32))
+    with pytest.raises(ValueError):
+        K.add_compress(torch.zeros((3, 4, 18), dtype=torch.int32), torch.zeros((1, 4, 18), dtype=torch.int32), 4)
     assert K.launches == {"decompress": 0, "windowed_lanes_k8": 0, "tile_sums": 0, "compress": 0,
-                          "windowed_lanes": 0, "windowed_lanes_k8_fe15": 0, "daa_lanes": 0}
+                          "windowed_lanes": 0, "windowed_lanes_k8_fe15": 0, "daa_lanes": 0, "add_compress": 0}
 
 
 # -- csrc/ed25519.cuh built for the host ----------------------------------------
@@ -483,6 +487,7 @@ def shim(tmp_path_factory):
     lib.shim_fe15.argtypes = [vp, vp, vp, vp, vp, i]
     lib.shim_square.argtypes = [vp, vp, vp, i]
     lib.shim_reduce64.argtypes = [vp, vp, i]
+    lib.shim_add_compress.argtypes = [vp, vp, vp, vp, i, i, i, i]
     lib.shim_k2_split.restype = i
     lib.shim_k3_sub.restype = i
     lib.shim_k6_split.restype = i
@@ -730,3 +735,57 @@ def test_cuh_fe15_tier_matches_pyref_field(shim):
                                 [(a - b) % P for a, b in zip(fi, gi)])):
         assert ints(got) == want  # canonical rows: the value itself, below p
         assert got.max() < (1 << 15) and got.min() >= 0
+
+
+# -- K8 -----------------------------------------------------------------------
+
+
+def _k8_cases():
+    """K8's addends: host points (Z != 1), the identity and the 4-torsion
+    cosets of the K4 edge set (Z scaled) on one side, the same reversed on
+    the other, each side in turn a broadcast row.  Yields (a rows, b rows,
+    a points, b points) with the points the rows encode as."""
+    tors, tors_pts = _torsion_rows()
+    rows = np.concatenate([_rows(HOST_PTS).astype(np.int32), tors])
+    pts = HOST_PTS + tors_pts
+    rev_rows, rev_pts = np.ascontiguousarray(rows[::-1]), pts[::-1]
+    yield rows, rev_rows, pts, rev_pts
+    yield rows[3:4].copy(), rev_rows, pts[3:4] * len(pts), rev_pts
+    yield rows, rev_rows[-1:].copy(), pts, rev_pts[-1:] * len(pts)
+
+
+@pytest.mark.parametrize("case", range(3))
+def test_add_compress_plain_matches_numpy_curve_and_pyref(case):
+    """K8's plain version against the numpy curve's add and compress (the
+    JAX package's ECDLP rounds) and pyref, broadcast on either side or
+    neither, with every sum kept and with only the last."""
+    a, b, a_pts, b_pts = list(_k8_cases())[case]
+    n = max(a.shape[0], b.shape[0])
+    nc = numpy_curve()
+    coords = [tuple(np.broadcast_to(r.view(np.uint32)[:, c, :], (n, 18)) for c in range(4)) for r in (a, b)]
+    want_sum = nc.add(*coords)
+    want_enc = np.asarray(nc.compress(want_sum))
+    assert [bytes(r) for r in want_enc] == _enc([p + q for p, q in zip(a_pts, b_pts)])
+    ta, tb = torch.from_numpy(a), torch.from_numpy(b)
+    for sums_from in (0, n - 1, None):
+        enc, sums = K.add_compress(ta, tb, sums_from)
+        assert np.array_equal(enc.numpy(), want_enc)
+        if sums_from is None:
+            assert sums is None
+        else:
+            assert np.array_equal(sums.numpy(), _canon_rows(want_sum)[sums_from:])
+
+
+def test_cuh_add_compress_matches_plain(shim):
+    """K8's body built for the host against its plain version, rows and
+    encodings, in each of the broadcasts; its field operations a lane are
+    FIELD_MULS / FIELD_SQS["add_compress"]."""
+    for a, b, _, _ in _k8_cases():
+        n = max(a.shape[0], b.shape[0])
+        enc, sums = np.zeros((n, 32), np.uint8), np.zeros((n - 2, 4, 18), np.int32)
+        shim.shim_reset_mul_count()
+        shim.shim_add_compress(_ptr(a), _ptr(b), _ptr(enc), _ptr(sums), a.shape[0], b.shape[0], 2, n)
+        assert _counts(shim) == (K.FIELD_MULS["add_compress"] * n, K.FIELD_SQS["add_compress"] * n)
+        want_enc, want_sums = K.add_compress_plain(torch.from_numpy(a), torch.from_numpy(b), 2)
+        assert np.array_equal(enc, want_enc.numpy())
+        assert np.array_equal(sums, want_sums.numpy())

@@ -44,6 +44,16 @@ void shim_compress(const int32_t *rows, uint8_t *out, int n) {
   for (int i = 0; i < n; ++i) compress_one(out + 32 * i, rows + 72 * i);
 }
 
+// K8 as add_compress.cu runs it: a side of one row is broadcast; sums go out
+// for lanes i >= sums_from (none when sums is null)
+void shim_add_compress(const int32_t *a, const int32_t *b, uint8_t *enc, int32_t *sums, int a_rows, int b_rows,
+                       int sums_from, int n) {
+  for (int i = 0; i < n; ++i) {
+    int32_t *sum = (sums != nullptr && i >= sums_from) ? sums + 72 * (size_t)(i - sums_from) : nullptr;
+    add_compress_one(enc + 32 * i, sum, a + 72 * (size_t)(a_rows == 1 ? 0 : i), b + 72 * (size_t)(b_rows == 1 ? 0 : i));
+  }
+}
+
 // fe_reduce64 on n rows of ten 64-bit column sums -> n limb vectors
 void shim_reduce64(const uint64_t *t, uint32_t *out, int n) {
   for (int i = 0; i < n; ++i) {

@@ -846,6 +846,19 @@ static XHE_HD void compress_one(uint8_t *out, const int32_t *rows) {
   fe_to_bytes(out, s);
 }
 
+// K8 body: the rows of a and b -> their sum's 32 encoding bytes, and the
+// sum's canonical rows where sum_rows is not null
+static XHE_HD void add_compress_one(uint8_t *out, int32_t *sum_rows, const int32_t *a, const int32_t *b) {
+  ge p, q;
+  ge_from_rows(p, a);
+  ge_from_rows(q, b);
+  ge_add(p, p, q);
+  if (sum_rows != nullptr) ge_to_rows(sum_rows, p);
+  fe s;
+  ge_compress_s(s, p);
+  fe_to_bytes(out, s);
+}
+
 // One node of the pairwise tree over a power-of-two run of points: lane i + h
 // onto lane i.  K3's trees and K2's combine take h from half the run down
 // to 1, which is the order of the port's ops/msm.py _tree_reduce.

@@ -344,10 +344,14 @@ class ECDLPInstance:
         return self.point
 
     def decode(self, tables, args=None):
-        raise NotImplementedError("ECDLP is ROADMAP queue 1")
+        from .ecdlp import decode
+
+        return decode(tables, self.point, args)
 
     def par_decode(self, tables, args=None):
-        raise NotImplementedError("ECDLP is ROADMAP queue 1")
+        from .ecdlp import par_decode
+
+        return par_decode(tables, self.point, args)
 
 
 class ElGamalPubkey(_LazyPointMixin):

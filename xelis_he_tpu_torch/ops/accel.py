@@ -18,6 +18,14 @@ lists):
    single device-to-host pull: (1 + n_sigs, 32) bytes;
 4. ``block_valid_flags`` (failure diagnostics only) and ``end_block``.
 
+Where the fold library (hashcore/verifyfold_native) does not load,
+``verify_batch`` takes the fused block check instead of steps 2-3:
+``fused_block_begin`` dispatches the sigma and signature lanes (K5) while the
+host folds the range proofs, and ``fused_block_finish`` dispatches the range
+lanes (K5), sums the groups and each signature's two lanes (K3), encodes the
+sums and R points (K4) and makes the block's one pull; ``fused_block_check``
+is the two in one dispatch.
+
 Two switches change the lane kernel of steps 2 and 3, as in the JAX package:
 ``quad_lanes=False`` (``XELIS_QUAD_LANES=0``) runs every lane through the
 single-lane kernel K5, each signature's R point being its s-lane plus its
@@ -77,12 +85,6 @@ def _gather_rows(tables, idx: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _not_in_slice(what: str):
-    raise NotImplementedError(
-        f"{what} is not ported yet (ROADMAP queue 1, item 7, the fused block check without the fold library)"
-    )
-
-
 class _LazyEncodings:
     """len()-able stand-in for the block's encoding list on the native path:
     the (n, 32) array is kept, and bytes objects are made only if a consumer
@@ -124,7 +126,8 @@ def _challenge_matches(entry, r_bytes) -> bool:
 
 class Accelerator:
     """Verification executor: the hand-written CUDA kernels K1-K7 on the
-    card, or their plain versions with ``device="cpu"``.
+    card (K8 serves ``ecdlp``), or their plain versions with
+    ``device="cpu"``.
 
     ``tile`` (K3 lanes per tile) and ``qtile`` (signature slot granule) set
     the padding of the lane groups; small values keep CPU runs small.
@@ -192,6 +195,9 @@ class Accelerator:
         lanes of each signature fill a tile together."""
         if self.use_quad:
             return K.K_PACK * self.tile, self.qtile
+        return self._single_lane_granules()
+
+    def _single_lane_granules(self):
         return self.tile, max(1, self.tile // 2)
 
     def _lane_granule(self, n: int) -> int:
@@ -463,23 +469,27 @@ class Accelerator:
         sums the lane tiles and adds each signature's two lanes."""
         digits = K.recode_signed4_torch(scal)
         rows = _gather_rows(tables, idx)
+        if not self.use_quad:
+            return self._lane_sums(K.windowed_lanes(rows.contiguous(), digits), ns, nr, nk)
         gr = ns + nr
-        if self.use_quad:
-            pts, dig = self._group_lanes(rows, digits, gr)
-            if nk:
-                s_pts, s_dig = self._sig_slots(rows[gr : gr + nk], rows[gr + nk :],
-                                               digits[:, gr : gr + nk], digits[:, gr + nk :])
-                pts, dig = torch.cat([pts, s_pts], dim=1), torch.cat([dig, s_dig], dim=2)
-            acc = self._packed_lanes(pts, dig)
-            per = K.K_PACK
-            r_acc = acc[gr // per :]
-        else:
-            acc = K.windowed_lanes(rows.contiguous(), digits)
-            per = 1
-            r_acc = self._pair_sums(acc[gr : gr + nk], acc[gr + nk :])
-        sums = K.tile_sums(acc[: gr // per], self.tile)
-        t1 = ns // per // self.tile
-        return self._two_group_sums(sums[:t1], sums[t1:]), r_acc
+        pts, dig = self._group_lanes(rows, digits, gr)
+        if nk:
+            s_pts, s_dig = self._sig_slots(rows[gr : gr + nk], rows[gr + nk :],
+                                           digits[:, gr : gr + nk], digits[:, gr + nk :])
+            pts, dig = torch.cat([pts, s_pts], dim=1), torch.cat([dig, s_dig], dim=2)
+        acc = self._packed_lanes(pts, dig)
+        sums = K.tile_sums(acc[: gr // K.K_PACK], self.tile)
+        t1 = ns // K.K_PACK // self.tile
+        return self._two_group_sums(sums[:t1], sums[t1:]), acc[gr // K.K_PACK :]
+
+    def _lane_sums(self, acc, ns, nr, nk):
+        """Single-lane accumulators [sigma | range | sig_s | sig_e] -> the
+        sigma and range sums (2, 4, 18) (K3 over the lane tiles, then the
+        group sums) and the (nk, 4, 18) R points (K3 at tile 2)."""
+        gr = ns + nr
+        sums = K.tile_sums(acc[:gr], self.tile)
+        t1 = ns // self.tile
+        return self._two_group_sums(sums[:t1], sums[t1:]), self._pair_sums(acc[gr : gr + nk], acc[gr + nk :])
 
     def _dispatch_chunk(self, idx_arr, all_scalars, extras_rows, ns, nr, nk, n_sigs):
         """Upload one chunk's lane indices and scalars, run its lanes, and
@@ -519,7 +529,6 @@ class Accelerator:
         32-byte encodings or host points (no generator markers: shared lanes
         go in the final combine); sig_entries: this chunk's (signature,
         pubkey, compressed, message) tuples."""
-        from .. import scalars as sc
         from ..elgamal import H as _H
         from ..metrics import span
 
@@ -527,17 +536,14 @@ class Accelerator:
         range_sc, range_pts = range_
         n_sigs = len(sig_entries)
         ns, nr, nk = self._chunk_sizes(len(sigma_sc), len(range_sc), n_sigs, floors)
-        sig_pts = [
-            e[1] if isinstance(e[1], (bytes, bytearray)) or not hasattr(e[1], "point") else e[1].point
-            for e in sig_entries
-        ]
+        sig_s, sig_e, sig_pts = self._sig_lanes(sig_entries)
         with span("fused_check.prep_chunk"):
             all_scalars = _np.concatenate(
                 [
                     self._pad_scalar_bytes(sigma_sc, ns),
                     self._pad_scalar_bytes(range_sc, nr),
-                    self._pad_scalar_bytes([e[0].s for e in sig_entries], nk),
-                    self._pad_scalar_bytes([(-e[0].e) % sc.L for e in sig_entries], nk),
+                    self._pad_scalar_bytes(sig_s, nk),
+                    self._pad_scalar_bytes(sig_e, nk),
                 ]
             )
             m_block = self.block_row_base()
@@ -619,14 +625,8 @@ class Accelerator:
         nr_s = self._round_up(len(range_sc), g1)
 
         with span("fused_check.prep_final"):
-            k_gens = 0
-            gens_rows = None
-            for p in range_pts:
-                if isinstance(p, tuple) and p and p[0] == "__bp_gens__":
-                    _, nb, m = p
-                    gens_rows = self._gens_rows(nb, m)
-                    k_gens = int(gens_rows.shape[0])
-                    break
+            gens_rows = self._gens_of(range_pts)
+            k_gens = int(gens_rows.shape[0]) if gens_rows is not None else 0
             scal = _np.concatenate(
                 [self._pad_scalar_bytes(sigma_sc, ns_s), self._pad_scalar_bytes(range_sc, nr_s)]
             )
@@ -651,26 +651,10 @@ class Accelerator:
                 torch.cat([shared[:1]] + [st["sigma"][None] for st in chunk_states]),
                 torch.cat([shared[1:]] + [st["range"][None] for st in chunk_states]),
             )
-            r_all = [st["r_acc"] for st in chunk_states if st["nk"]]
-            enc = K.compress(torch.cat([sums2, *r_all]).contiguous())
-            # flags row: sigma sum, range sum identity; every encoding valid
-            ok = [(enc[0] == 0).all(), (enc[1] == 0).all()]
-            if blk.valid is not None and blk.valid.numel():
-                ok.append(blk.valid.min() != 0)
-            else:
-                ok.append(torch.ones((), dtype=torch.bool, device=self.device))
-            flags = torch.zeros((1, 32), dtype=torch.uint8, device=self.device)
-            flags[0, :3] = torch.stack(ok).to(torch.uint8)
-            pending = torch.cat([flags, enc[2:]])
+            pending = self._packed_result(sums2, [st["r_acc"] for st in chunk_states if st["nk"]])
         if pre_pull_fn is not None:
             pre_pull_fn()
-        with span("fused_check.pull"):
-            out = pending.cpu().numpy()  # the single host sync
-        all_valid = bool(out[0, 2])
-        sigma_ok = bool(out[0, 0]) and all_valid
-        range_ok = bool(out[0, 1]) and all_valid
-        r_bytes = out[1:]
-        sig_ok = all_valid
+        sigma_ok, range_ok, sig_ok, r_bytes = self._pull_result(pending)
         if sig_ok:
             real = []
             row = 0
@@ -685,6 +669,184 @@ class Accelerator:
             else:
                 sig_ok = all(_challenge_matches(e, r) for e, r in zip(sig_entries, real))
         return sigma_ok, range_ok, sig_ok
+
+    def _packed_result(self, sums2, r_points) -> torch.Tensor:
+        """K4 on the two group sums and the R points -> the block's result,
+        still on the device: a flags row (sigma sum identity, range sum
+        identity, every block encoding valid), then the R encodings."""
+        blk = self._block_state()
+        enc = K.compress(torch.cat([sums2, *r_points]).contiguous())
+        ok = [(enc[0] == 0).all(), (enc[1] == 0).all()]
+        if blk.valid is not None and blk.valid.numel():
+            ok.append(blk.valid.min() != 0)
+        else:
+            ok.append(torch.ones((), dtype=torch.bool, device=self.device))
+        flags = torch.zeros((1, 32), dtype=torch.uint8, device=self.device)
+        flags[0, :3] = torch.stack(ok).to(torch.uint8)
+        return torch.cat([flags, enc[2:]])
+
+    @staticmethod
+    def _pull_result(pending: torch.Tensor):
+        """The block's single host sync: pull ``_packed_result``'s rows.
+        Returns (sigma_ok, range_ok, all encodings valid, R encodings)."""
+        from ..metrics import span
+
+        with span("fused_check.pull"):
+            out = pending.cpu().numpy()
+        all_valid = bool(out[0, 2])
+        return bool(out[0, 0]) and all_valid, bool(out[0, 1]) and all_valid, all_valid, out[1:]
+
+    # -- the fused block check without the fold library ------------------------
+    #
+    # The Python block path of builds where hashcore/verifyfold_native does
+    # not load: ``fused_block_begin`` dispatches the sigma and signature
+    # lanes right after pre_verify, so the device runs them while the host
+    # folds the range proofs; ``fused_block_finish`` dispatches the range
+    # lanes, combines them with the first phase's lanes on the device and
+    # makes the block's one pull.  ``fused_block_check`` does both in one
+    # dispatch.  Every lane goes through the single-lane kernel K5 (the
+    # reference's ``_lanes_fn``, whatever ``use_quad`` says), each group
+    # padded to whole K3 tiles of ``tile`` lanes and the signatures to half
+    # a tile; K3 sums the tiles and the groups and adds each signature's two
+    # lanes; K4 encodes the sums and the R points.
+
+    @staticmethod
+    def _sig_lanes(sig_entries):
+        """Signature scalars (s, (-e) mod L) and public-key points of
+        ``sig_entries``."""
+        from .. import scalars as sc
+
+        sig_s = [e[0].s for e in sig_entries]
+        sig_e = [(-e[0].e) % sc.L for e in sig_entries]
+        sig_pts = [
+            e[1] if isinstance(e[1], (bytes, bytearray)) or not hasattr(e[1], "point") else e[1].point
+            for e in sig_entries
+        ]
+        return sig_s, sig_e, sig_pts
+
+    def _gens_of(self, range_pts):
+        """The generator rows a ``("__bp_gens__", n, m)`` marker among the
+        range points stands for (None without one)."""
+        for p in range_pts:
+            if isinstance(p, tuple) and p and p[0] == "__bp_gens__":
+                _, nb, m = p
+                return self._gens_rows(nb, m)
+        return None
+
+    def _single_lanes(self, tables, idx_arr, scal):
+        """K5 over lanes gathered by ``idx_arr`` from ``tables``, with their
+        (n, 32) uint8 scalars: the (n, 4, 18) accumulators."""
+        digits = K.recode_signed4_torch(to_device(scal, self.device))
+        rows = _gather_rows(tables, to_device(idx_arr, self.device))
+        return K.windowed_lanes(rows.contiguous(), digits)
+
+    def _signatures_ok(self, sig_ok, sig_entries, r_bytes) -> bool:
+        return sig_ok and all(_challenge_matches(e, r) for e, r in zip(sig_entries, r_bytes))
+
+    def fused_block_begin(self, sigma, sig_entries):
+        """Dispatch the sigma and signature lanes WITHOUT waiting (K5); the
+        device computes them while the caller folds the range proofs on the
+        host.  Returns an opaque phase-A handle for ``fused_block_finish``.
+
+        sigma: (scalars, points) with points as block-row indices, 32-byte
+        encodings or host points; sig_entries: (signature, public key point
+        or encoding, compressed key, message) tuples."""
+        from ..elgamal import H as _H
+        from ..metrics import span
+
+        sigma_sc, sigma_pts = sigma
+        g1, g2 = self._single_lane_granules()
+        ns = self._round_up(len(sigma_sc), g1)
+        nk = self._round_up(len(sig_entries), g2) if sig_entries else 0
+        sig_s, sig_e, sig_pts = self._sig_lanes(sig_entries)
+        with span("fused_check.prep_a"):
+            scal = _np.concatenate(
+                [self._pad_scalar_bytes(sigma_sc, ns), self._pad_scalar_bytes(sig_s, nk),
+                 self._pad_scalar_bytes(sig_e, nk)]
+            )
+            blk = self._block_state()
+            m_block = self.block_row_base()
+            extras: list[RistrettoPoint] = [IDENTITY]
+            extra_ids: dict = {}
+            idx_arr = _np.concatenate(
+                [
+                    self._resolve_lane_points(group_pts, total, m_block, 0, extras, extra_ids)
+                    for group_pts, total in ((list(sigma_pts), ns), ([_H] * len(sig_entries), nk), (sig_pts, nk))
+                ]
+            )
+            extra_rows = rows_to_device(self._points_to_rows(extras), self.device)
+            tables = [t for t in (blk.rows, extra_rows) if t is not None]
+            acc_a = self._single_lanes(tables, idx_arr, scal)  # no sync
+        return {"acc_a": acc_a, "ns": ns, "nk": nk, "m_block": m_block, "sig_entries": sig_entries}
+
+    def fused_block_finish(self, state, range_):
+        """Dispatch the range lanes (K5), combine them with phase A on the
+        device (K3, K4) with the block's valid flags, and pull the packed
+        result: the block's single host sync.  The signatures' challenges
+        are then hashed on the host.  Returns (sigma_ok, range_ok, sig_ok).
+
+        range_: (scalars, points); the points may hold one
+        ("__bp_gens__", n, m) marker for the generator rows."""
+        from ..metrics import span
+
+        range_sc, range_pts = range_
+        ns, nk, m_block = state["ns"], state["nk"], state["m_block"]
+        nr = self._round_up(len(range_sc), self._single_lane_granules()[0])
+        with span("fused_check.prep_b"):
+            scal = self._pad_scalar_bytes(range_sc, nr)
+            gens_rows = self._gens_of(range_pts)
+            k_gens = int(gens_rows.shape[0]) if gens_rows is not None else 0
+            extras: list[RistrettoPoint] = [IDENTITY]
+            idx_arr = self._resolve_lane_points(list(range_pts), nr, m_block, k_gens, extras, {})
+            extra_rows = rows_to_device(self._points_to_rows(extras), self.device)
+            blk = self._block_state()
+            tables = [t for t in (blk.rows, gens_rows, extra_rows) if t is not None]
+            acc_r = self._single_lanes(tables, idx_arr, scal)
+            acc_a = state["acc_a"]
+            sums2, r = self._lane_sums(torch.cat([acc_a[:ns], acc_r, acc_a[ns:]]), ns, nr, nk)
+            pending = self._packed_result(sums2, [r])
+        sigma_ok, range_ok, sig_ok, r_bytes = self._pull_result(pending)
+        return sigma_ok, range_ok, self._signatures_ok(sig_ok, state["sig_entries"], r_bytes)
+
+    def fused_block_check(self, sigma, range_, sig_entries):
+        """``fused_block_begin`` and ``fused_block_finish`` in one dispatch:
+        the lanes [sigma | range | sig_s | sig_e] in one launch of K5, points
+        gathered from [block | gens | extras].  Returns (sigma_ok, range_ok,
+        sig_ok) with one host sync."""
+        from ..elgamal import H as _H
+        from ..metrics import span
+
+        sigma_sc, sigma_pts = sigma
+        range_sc, range_pts = range_
+        g1, g2 = self._single_lane_granules()
+        ns = self._round_up(len(sigma_sc), g1)
+        nr = self._round_up(len(range_sc), g1)
+        nk = self._round_up(len(sig_entries), g2) if sig_entries else 0
+        sig_s, sig_e, sig_pts = self._sig_lanes(sig_entries)
+        with span("fused_check.prep"):
+            scal = _np.concatenate(
+                [self._pad_scalar_bytes(sigma_sc, ns), self._pad_scalar_bytes(range_sc, nr),
+                 self._pad_scalar_bytes(sig_s, nk), self._pad_scalar_bytes(sig_e, nk)]
+            )
+            gens_rows = self._gens_of(range_pts)
+            k_gens = int(gens_rows.shape[0]) if gens_rows is not None else 0
+            blk = self._block_state()
+            m_block = self.block_row_base()
+            extras: list[RistrettoPoint] = [IDENTITY]
+            extra_ids: dict = {}
+            idx_arr = _np.concatenate(
+                [
+                    self._resolve_lane_points(group_pts, total, m_block, k_gens, extras, extra_ids)
+                    for group_pts, total in ((list(sigma_pts), ns), (list(range_pts), nr),
+                                             ([_H] * len(sig_entries), nk), (sig_pts, nk))
+                ]
+            )
+            extra_rows = rows_to_device(self._points_to_rows(extras), self.device)
+            tables = [t for t in (blk.rows, gens_rows, extra_rows) if t is not None]
+            sums2, r = self._lane_sums(self._single_lanes(tables, idx_arr, scal), ns, nr, nk)
+            pending = self._packed_result(sums2, [r])
+        sigma_ok, range_ok, sig_ok, r_bytes = self._pull_result(pending)
+        return sigma_ok, range_ok, self._signatures_ok(sig_ok, sig_entries, r_bytes)
 
     # -- generic MSM -----------------------------------------------------------------
 
@@ -802,17 +964,6 @@ class Accelerator:
         n = len(points)
         enc = K.compress(self._to_device_points(list(points))).cpu().numpy()
         return [bytes(enc[i]) for i in range(n)]
-
-    # -- outside this slice of the port ----------------------------------------
-
-    def fused_block_begin(self, sigma, sig_entries):
-        _not_in_slice("Accelerator.fused_block_begin")
-
-    def fused_block_finish(self, state, range_):
-        _not_in_slice("Accelerator.fused_block_finish")
-
-    def fused_block_check(self, sigma, range_, sig_entries):
-        _not_in_slice("Accelerator.fused_block_check")
 
 
 _default: Accelerator | None = None

@@ -88,6 +88,18 @@ class Curve:
         """cond ? p : q elementwise over the batch."""
         return tuple(self.fe.select(cond, a, b) for a, b in zip(p, q))
 
+    def cneg(self, cond, p):
+        return self.select(cond, self.neg(p), p)
+
+    def eq(self, p, q):
+        """Ristretto equality: X1*Y2 == Y1*X2 or X1*X2 == Y1*Y2."""
+        fe = self.fe
+        X1, Y1, _, _ = p
+        X2, Y2, _, _ = q
+        a = fe.eq(fe.mul(X1, Y2), fe.mul(Y1, X2))
+        b = fe.eq(fe.mul(X1, X2), fe.mul(Y1, Y2))
+        return a | b
+
     def is_identity(self, p):
         fe = self.fe
         return fe.is_zero(p[0]) | fe.is_zero(p[1])
@@ -162,3 +174,29 @@ class Curve:
         valid = canonical & nonneg & was_square & ~fe.is_negative(t) & ~fe.is_zero(y)
         pt = self.select(valid, (x, y, one, t), self.identity(valid.shape))
         return pt, valid
+
+    # -- Elligator2 hash-to-group (RFC 9496), batched --------------------------
+
+    def from_uniform_bytes(self, data: torch.Tensor):
+        """(..., 64) uint8 -> points: the maps of the two 32-byte halves, added."""
+        r1 = self.fe.from_bytes_le(data[..., :32])
+        r2 = self.fe.from_bytes_le(data[..., 32:])
+        return self.add(self.elligator_map(r1), self.elligator_map(r2))
+
+    def elligator_map(self, r0):
+        """RFC 9496's MAP of a field element batch."""
+        fe = self.fe
+        one = fe.ONE.expand_as(r0)
+        r = fe.mul(fe.mul(fe.SQRT_M1, r0), r0)
+        u = fe.mul(fe.add(r, one), fe.ONE_MINUS_D_SQ)
+        v = fe.mul(fe.sub(fe.neg(one), fe.mul(r, fe.D)), fe.add(r, fe.D))
+        was_square, s = fe.sqrt_ratio_m1(u, v)
+        s_prime = fe.neg(fe.abs(fe.mul(s, r0)))
+        s = fe.select(was_square, s, s_prime)
+        c = fe.select(was_square, fe.NEG_ONE.expand_as(r), r)
+        n = fe.sub(fe.mul(fe.mul(c, fe.sub(r, one)), fe.D_MINUS_ONE_SQ), v)
+        w0 = fe.mul(fe.add(s, s), v)
+        w1 = fe.mul(n, fe.SQRT_AD_MINUS_ONE)
+        w2 = fe.sub(one, fe.square(s))
+        w3 = fe.add(one, fe.square(s))
+        return (fe.mul(w0, w3), fe.mul(w2, w1), fe.mul(w1, w3), fe.mul(w0, w2))

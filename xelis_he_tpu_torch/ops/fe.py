@@ -142,7 +142,11 @@ class Field:
         self.SQRT_M1 = self.from_int(_pf.SQRT_M1)
         self.D = self.from_int(_pf.D)
         self.D2 = self.from_int(2 * _pf.D % P_INT)
+        self.ONE_MINUS_D_SQ = self.from_int(_pf.ONE_MINUS_D_SQ)
+        self.D_MINUS_ONE_SQ = self.from_int(_pf.D_MINUS_ONE_SQ)
+        self.SQRT_AD_MINUS_ONE = self.from_int(_pf.SQRT_AD_MINUS_ONE)
         self.INVSQRT_A_MINUS_D = self.from_int(_pf.INVSQRT_A_MINUS_D)
+        self.NEG_ONE = self.from_int(P_INT - 1)
 
     # -- conversions --------------------------------------------------------
 

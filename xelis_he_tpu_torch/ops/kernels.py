@@ -1,4 +1,4 @@
-"""The seven CUDA kernels, with their wrappers, plain versions and launch
+"""The eight CUDA kernels, with their wrappers, plain versions and launch
 counts.
 
 =====  ========================  =============================================
@@ -11,6 +11,8 @@ counts.
  K5     windowed_lane.cu          _windowed_kernel + msm_windowed_lanes_pallas
  K6     windowed_lanes_fe15.cu    _windowed_kernel_k4 (the 18x15-bit tier)
  K7     daa_lanes.cu              _daa_kernel + msm_daa_lanes_pallas
+ K8     add_compress.cu           no Pallas kernel: ECDLP's XLA curve.add and
+                                  compress (xelis_he_tpu/ecdlp.py)
 =====  ========================  =============================================
 
 Each wrapper takes and returns torch tensors in the port's boundary formats:
@@ -52,7 +54,7 @@ N_BITS = 253  # ristretto scalars are below 2^253: the bits K7 walks
 N_WORDS = 8  # 32-bit words of a packed scalar
 
 launches = {"decompress": 0, "windowed_lanes_k8": 0, "tile_sums": 0, "compress": 0,
-            "windowed_lanes": 0, "windowed_lanes_k8_fe15": 0, "daa_lanes": 0}
+            "windowed_lanes": 0, "windowed_lanes_k8_fe15": 0, "daa_lanes": 0, "add_compress": 0}
 
 
 def reset_launches() -> None:
@@ -63,12 +65,12 @@ def reset_launches() -> None:
 # field multiplications and squarings each kernel performs (counted by the
 # host build of csrc/ed25519.cuh in tests/test_torch_kernels.py), for bounds
 # on the card; the counts are per encoding, slot, point addition (tile - 1
-# per tile), point and lane.  K7's work depends on its scalars: the entry is
+# per tile), point, lane and sum.  K7's work depends on its scalars: the entry is
 # the 253 doublings of a lane, and every set bit adds DAA_MULS_PER_SET_BIT.
 FIELD_MULS = {"decompress": 28, "windowed_lanes_k8": 5336, "tile_sums": 9, "compress": 32,
-              "windowed_lanes": 1451, "windowed_lanes_k8_fe15": 5336, "daa_lanes": 1012}
+              "windowed_lanes": 1451, "windowed_lanes_k8_fe15": 5336, "daa_lanes": 1012, "add_compress": 41}
 FIELD_SQS = {"decompress": 256, "windowed_lanes_k8": 1152, "tile_sums": 0, "compress": 255,
-             "windowed_lanes": 1040, "windowed_lanes_k8_fe15": 1152, "daa_lanes": 1012}
+             "windowed_lanes": 1040, "windowed_lanes_k8_fe15": 1152, "daa_lanes": 1012, "add_compress": 255}
 DAA_MULS_PER_SET_BIT = 9
 # 32-bit multiply-adds of one radix-2^25.5 field multiplication: 100
 # 32x32->64 products (two 32-bit halves each) and 10 multiplies by 19; of a
@@ -319,6 +321,17 @@ def windowed_lanes_plain(points: torch.Tensor, digits: torch.Tensor) -> torch.Te
     return point_to_rows(acc, fe).to(torch.int32)
 
 
+def add_compress_plain(a: torch.Tensor, b: torch.Tensor, sums_from: int | None):
+    """K8's function: lane i = a[i or 0] + b[i or 0] by ``Curve.add``, then
+    ``compress_plain`` of the canonical sums; the sums of lanes from
+    ``sums_from`` on (None: no sums)."""
+    c = _curve(a.device)
+    n = max(a.shape[0], b.shape[0])
+    p, q = (tuple(x.expand(n, NLIMBS) for x in rows_to_point(r)) for r in (a, b))
+    rows = point_to_rows(c.add(p, q), c.fe).to(torch.int32)
+    return compress_plain(rows), None if sums_from is None else rows[sums_from:]
+
+
 def daa_lanes_plain(points: torch.Tensor, bits: torch.Tensor) -> torch.Tensor:
     """lane i = s_i P_i, as K7: 253 steps, LSB first, of an addition of the
     running base where the bit is set and a doubling of the base."""
@@ -505,6 +518,30 @@ def sum_points(rows: torch.Tensor) -> torch.Tensor:
     if n == 0:
         return identity_rows(g, rows.device)
     return rows[:, 0].contiguous()
+
+
+def add_compress(a: torch.Tensor, b: torch.Tensor, sums_from: int | None = None):
+    """K8: a (n or 1, 4, 18) and b (n or 1, 4, 18) int32 rows, a side of one
+    row broadcast -> ((n, 32) uint8 encodings of the sums a[i] + b[i], the
+    (n - sums_from, 4, 18) int32 canonical sums of lanes sums_from.. or None
+    when ``sums_from`` is None)."""
+    n = max(a.shape[0], b.shape[0])
+    _expect(a, torch.int32, (a.shape[0], 4, NLIMBS), "addend rows a")
+    _expect(b, torch.int32, (b.shape[0], 4, NLIMBS), "addend rows b")
+    if a.shape[0] not in (1, n) or b.shape[0] not in (1, n) or a.device != b.device:
+        raise ValueError(f"addends of {a.shape[0]} and {b.shape[0]} rows on {a.device}, {b.device}: "
+                         "want n rows or one, on one device")
+    if sums_from is not None and not 0 <= sums_from <= n:
+        raise ValueError(f"sums_from {sums_from} outside [0, {n}]")
+    if not _on_card(a):
+        return add_compress_plain(a, b, sums_from)
+    enc = torch.empty((n, 32), dtype=torch.uint8, device=a.device)
+    sums = None if sums_from is None else torch.empty((n - sums_from, 4, NLIMBS), dtype=torch.int32,
+                                                        device=a.device)
+    if n:
+        _launch("add_compress", "add_compress", a, b, enc, sums, a.shape[0], b.shape[0],
+                n if sums_from is None else sums_from, n)
+    return enc, sums
 
 
 def identity_rows(n: int, device) -> torch.Tensor:

@@ -1374,6 +1374,47 @@ def _fused_native(accel, txs, state, metrics, span):
         pv.lib.xhe_blk_free(sess)
 
 
+def _fused_block_phases(accel, txs, state, collector, sig_entries, tx_bytes_pairs, metrics, span):
+    """Block verification without the fold library: pre_verify and the
+    range-proof fold in Python, the device in two phases behind one sync.
+    The sigma and signature lanes are dispatched first
+    (``fused_block_begin``), so the device runs them (and the block's
+    decompression) while the host folds the range proofs; the range lanes
+    then combine with them on the device (``fused_block_finish``).  Returns
+    (sigma_ok, range_ok, sigs_ok)."""
+    prepared = []
+    with span("verify_batch.pre_verify"):
+        for i, tx in enumerate(txs):
+            transcript, commitments = pre_verify(
+                tx,
+                state,
+                collector,
+                sig_entries=sig_entries,
+                tx_bytes_pair=tx_bytes_pairs[i],
+            )
+            prepared.append((transcript, commitments))
+    views = [
+        tx.range_proof.verification_view(transcript, commitments, 64)
+        for tx, (transcript, commitments) in zip(txs, prepared)
+    ]
+    with span("verify_batch.sigma_dispatch"):
+        sigma_sc, sigma_pts = collector.msm_inputs()
+        state_a = accel.fused_block_begin((sigma_sc, sigma_pts), sig_entries)
+    with span("verify_batch.range_fold"):
+        range_inputs = {"sc": [], "pts": []}
+
+        def _capture(scalars, points):
+            range_inputs["sc"] = scalars
+            range_inputs["pts"] = points
+            return None
+
+        RangeProof.verify_batch(views, BP_GENS, PC_GENS, msm_check=_capture)
+    metrics.incr("verify_batch.sigma_msm_points", len(sigma_sc))
+    metrics.incr("verify_batch.range_msm_points", len(range_inputs["sc"]))
+    with span("verify_batch.device_checks"):
+        return accel.fused_block_finish(state_a, (range_inputs["sc"], range_inputs["pts"]))
+
+
 def verify_batch(
     txs: list[Transaction],
     state: BlockchainVerificationState,
@@ -1450,17 +1491,8 @@ def verify_batch(
 
     # the Python block path: pre_verify in Python, each tx's transcript
     # replay and scalar fold as one script on the C++ fold workers, the lanes
-    # dispatched chunk by chunk, one sync for the block
-    try:
-        from ..hashcore.verifyfold_native import lib as _fold_lib  # noqa: F401
-    except Exception as e:
-        raise NotImplementedError(
-            "this block needs the fused block check without the fold library "
-            "(Accelerator.fused_block_begin/finish), which is not ported yet "
-            "(ROADMAP queue 1, item 7); the fold library did not load"
-        ) from e
-    from ..sigma import DeferredTxFold
-
+    # dispatched chunk by chunk, one sync for the block; where the fold
+    # library does not load, the fused block check (_fused_block_phases)
     sig_entries: list = []
     with span("verify_batch.decompress"):
         # Dispatch the block's decompression and do NOT wait: the rows and
@@ -1474,11 +1506,22 @@ def verify_batch(
     set_block_lazy(True)
     try:
         sigma_batch_collector = BatchCollector(msm_fn=accel.msm, wants_bytes=True)
-        deferred_folds = [DeferredTxFold() for _ in txs]
-        sigma_ok, range_ok, sigs_ok = _fused_deferred(
-            accel, txs, state, sigma_batch_collector, deferred_folds,
-            sig_entries, tx_bytes_pairs, metrics, span,
-        )
+        try:
+            from ..hashcore.verifyfold_native import lib as _fold_lib  # noqa: F401
+            from ..sigma import DeferredTxFold
+
+            deferred_folds = [DeferredTxFold() for _ in txs]
+        except Exception:  # the native build is unavailable, however it failed
+            deferred_folds = None
+        if deferred_folds is not None:
+            sigma_ok, range_ok, sigs_ok = _fused_deferred(
+                accel, txs, state, sigma_batch_collector, deferred_folds,
+                sig_entries, tx_bytes_pairs, metrics, span,
+            )
+        else:
+            sigma_ok, range_ok, sigs_ok = _fused_block_phases(
+                accel, txs, state, sigma_batch_collector, sig_entries, tx_bytes_pairs, metrics, span,
+            )
         if not (sigma_ok and range_ok and sigs_ok):
             # failure diagnostics (extra sync, failure path only): an invalid
             # encoding surfaces as the reference's
