@@ -44,8 +44,10 @@ Phases, each of which fails the run loudly:
     ``hashcore.verifyfold_native`` made to fail its import and
     XELIS_NATIVE_PREVERIFY=0 (``fused_block_begin`` / ``fused_block_finish``):
     K1, K5, K3 and K4 and no other kernel, one pull, the default verify's
-    balances, ``fused_block_check`` giving begin/finish's flags, and a
-    tampered signature rejected as such;
+    balances, every launch of the run (K1, both K5s, the three K3s, K4) held
+    to its plain version on its own inputs and timed on the device,
+    ``fused_block_check`` giving begin/finish's flags, and a tampered
+    signature rejected as such;
 11. ECDLP: an l1 = 22 table built on the card (K8), sampled entries against
     pyref, a flat save/load round trip, ``par_decode`` of 16 values in
     [0, 2^44) at 8,192 lanes a round, one with a negative ``range_min`` and
@@ -56,7 +58,8 @@ Phases, each of which fails the run loudly:
     small kernel that is mostly the host's launch cost), beside its plain
     version's time (CUDA events around one call, median of 3) and the card's
     bound; K3 also at every other shape the path launches it at (the group
-    sums of ``sum_points`` among them), K5 also at the fused block's launch;
+    sums of ``sum_points`` among them), with phase 10's launches beside
+    them; each kernel's mismatch count covers phase 10's launches too;
 13. trace: one more default verify under torch.profiler, whose CUDA activity
     gives the device's busy time and idle share during a verify.
 
@@ -552,14 +555,17 @@ class Recorder:
     """Wraps a kernel wrapper for one run: passes every call through and
     keeps (clones of) the inputs of the call with the most work items.  For
     K3 it also keeps the first inputs of each shape it is called at, with
-    the number of calls (``shapes``)."""
+    the number of calls (``shapes``).  With ``keep_all`` it keeps the inputs
+    of every call (``calls``)."""
 
-    def __init__(self, module, name):
+    def __init__(self, module, name, keep_all=False):
         self.module, self.name = module, name
         self.fn = getattr(module, name)
         self.args = None
         self.size = -1
         self.shapes = {}
+        self.keep_all = keep_all
+        self.calls = []
 
     def __call__(self, *args):
         if self.name in ("windowed_lanes_k8", "windowed_lanes_k8_fe15"):
@@ -576,6 +582,8 @@ class Recorder:
             if key not in self.shapes:
                 self.shapes[key] = [0, (args[0].clone(), args[1])]
             self.shapes[key][0] += 1
+        if self.keep_all:
+            self.calls.append(tuple(a.clone() if hasattr(a, "clone") else a for a in args))
         return self.fn(*args)
 
     def __enter__(self):
@@ -586,16 +594,16 @@ class Recorder:
         setattr(self.module, self.name, self.fn)
 
 
-def counted(fn, record=()):
+def counted(fn, record=(), keep_all=False):
     """Run ``fn`` once with the launch counts set to 0 just before and read
-    just after, the inputs of the kernels named in ``record`` kept, and
-    synchronising CUDA calls counted.  Returns (fn's result, launches,
-    number of synchronising calls, {name: Recorder})."""
+    just after, the inputs of the kernels named in ``record`` kept (of every
+    call with ``keep_all``), and synchronising CUDA calls counted.  Returns
+    (fn's result, launches, number of synchronising calls, {name: Recorder})."""
     import torch
 
     from xelis_he_tpu_torch.ops import kernels as K
 
-    recorders = {name: Recorder(K, name) for name in record}
+    recorders = {name: Recorder(K, name, keep_all) for name in record}
     for r in recorders.values():
         r.__enter__()
     try:
@@ -939,10 +947,11 @@ FOLD_LIBRARY = "xelis_he_tpu_torch.hashcore.verifyfold_native"
 def fused_block_path(txs, ledger, want_balances, clock_hz):
     """Phase 10: the block through the fused block check, the fold library's
     import made to fail and the native engine told not to take the block
-    (both restored after).  Returns the phase's figures."""
+    (both restored after).  Every kernel launch of the counted run is held
+    to its plain version.  Returns (the phase's figures, {name:
+    (mismatches, max_abs_err)}, a row for each launch)."""
     from xelis_he_tpu_torch import ProofVerificationError, verify_batch
     from xelis_he_tpu_torch.metrics import metrics
-    from xelis_he_tpu_torch.ops import kernels as K
     from xelis_he_tpu_torch.ops.accel import Accelerator
 
     saved = sys.modules.get(FOLD_LIBRARY)
@@ -984,7 +993,7 @@ def fused_block_path(txs, ledger, want_balances, clock_hz):
         state = ledger.clone()
         metrics.reset()
         t0 = time.perf_counter()
-        _, launches, syncs, recs = counted(lambda: verify_batch(txs, state, accel=accel), ("windowed_lanes",))
+        _, launches, syncs, recs = counted(lambda: verify_batch(txs, state, accel=accel), FUSED_PATH, keep_all=True)
         ms = (time.perf_counter() - t0) * 1e3
         snap = metrics.snapshot()
         expect_launched(f"fused block, {len(txs)} txs", launches, FUSED_PATH,
@@ -1001,11 +1010,8 @@ def fused_block_path(txs, ledger, want_balances, clock_hz):
             f"call, balances equal to the default verify's")
         log(f"  fused block spans, ms: {json.dumps(spans)}")
         log(f"  fused block counters: {json.dumps(snap['counters'])}")
-        rec = recs["windowed_lanes"]
-        k5_ms = device_ms(lambda: K.windowed_lanes(*rec.args), KERNELS["windowed_lanes"][2])
-        shape, bound_ms, bound_by = bound("windowed_lanes", rec.args, clock_hz)
-        log(f"  K5 at the fused block's largest launch, {shape}: {k5_ms:.4f} ms on the device "
-            f"(bound {bound_ms:.5f} ms, {bound_by}), {launches['windowed_lanes']} launches")
+        log("  every kernel launch of the fused block against its plain version, and timed:")
+        errs, rows = each_launch(recs, clock_hz)
 
         # a tampered signature: rejected as such, fused_block_check alike
         bad = list(txs)
@@ -1028,10 +1034,33 @@ def fused_block_path(txs, ledger, want_balances, clock_hz):
             sys.modules.pop(FOLD_LIBRARY, None)
         else:
             sys.modules[FOLD_LIBRARY] = saved
-    fused = {"txs": len(txs), "ms": ms, "ms_per_tx": ms / len(txs), "spans_ms": spans,
-             "k5": {"shape": shape, "ms": k5_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-                    "launches": launches["windowed_lanes"]}}
-    return fused
+    fused = {"txs": len(txs), "ms": ms, "ms_per_tx": ms / len(txs), "spans_ms": spans}
+    return fused, errs, rows
+
+
+def each_launch(recorders, clock_hz) -> tuple[dict, list[dict]]:
+    """Every launch the recorders kept, held to its plain version on the same
+    inputs and timed on the device: ({name: (mismatches, max_abs_err)}, a
+    row for each launch)."""
+    from xelis_he_tpu_torch.ops import kernels as K
+
+    errs, rows = {}, []
+    for name, rec in recorders.items():
+        kernel, plain = rec.fn, getattr(K, name + "_plain")
+        results = []
+        for i, args in enumerate(rec.calls):
+            shape, bound_ms, bound_by = bound(name, args, clock_hz)
+            got, want = kernel(*args), plain(*args)
+            pairs = zip(got, want) if isinstance(got, tuple) else [(got, want)]
+            n_bad, err = worst(*(expect_equal(f"{name} launch {i + 1} of {len(rec.calls)}, {shape}, output {j}", a, b)
+                                 for j, (a, b) in enumerate(pairs)))
+            results.append((n_bad, err))
+            ms = device_ms(lambda: kernel(*args), KERNELS[name][2])
+            log(f"  {name} at {shape}: {ms:.4f} ms on the device (bound {bound_ms:.5f} ms, {bound_by})")
+            rows.append({"name": name, "shape": shape, "ms": ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                         "max_mismatch": n_bad, "max_abs_err": err})
+        errs[name] = worst(*results)
+    return errs, rows
 
 
 def ecdlp_path(rng: random.Random, accel):
@@ -1485,7 +1514,9 @@ def main() -> int:
     log("the Python block path (XELIS_NATIVE_PREVERIFY=0):")
     python_path(*block, accel)
     log("the fused block without the fold library (no verifyfold_native, XELIS_NATIVE_PREVERIFY=0):")
-    fused = fused_block_path(*block, balances, clock_hz)
+    fused, fused_errs, fused_rows = fused_block_path(*block, balances, clock_hz)
+    for name, res in fused_errs.items():
+        errs[name] = worst(errs[name], res)
     log("ECDLP:")
     launches["add_compress"], recorders["add_compress"], ecdlp = ecdlp_path(random.Random(args.seed + 2), accel)
 
@@ -1494,8 +1525,10 @@ def main() -> int:
     for r in rows:
         if r["name"] in builds:
             r["build"] = builds[r["name"]]
-        if r["name"] == "windowed_lanes":
-            r["variants"] = [{"what": "the fused block's largest launch", **fused["k5"]}]
+        mine = [{"what": "a launch of the fused block without the fold library",
+                 **{k: v for k, v in f.items() if k != "name"}} for f in fused_rows if f["name"] == r["name"]]
+        if mine:
+            r.setdefault("variants", []).extend(mine)
     log("trace of one verify:")
     trace = trace_verify(*block, accel)
     print(json.dumps({"kernels": rows, "txs": args.txs, **per_tx, "fused_block": fused, "ecdlp": ecdlp,

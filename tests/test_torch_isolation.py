@@ -10,7 +10,9 @@ deliberate: the port's cache root (utils/cachedir.py).  The modules of
 double-and-add half of the engine (the Pippenger half waits), tx/verify.py,
 beside the torch device glue, drops the JAX device pump and the small-block
 host crossover, and ecdlp.py runs its table build and giant-step rounds on
-the port's add-and-compress kernel."""
+the port's add-and-compress kernel.  The rest of ecdlp.py (its arguments,
+the table's files and lookups, the host walk of ``decode``) is copied, and
+each of those definitions is held to the JAX package's (``COPIED_DEFS``)."""
 
 import ast
 import pathlib
@@ -43,12 +45,57 @@ EDITS = {
     ],
 }
 
+# the definitions of a PORTED module that the port rebuilds on torch; every
+# other top-level or class-level definition of the JAX package's module is a
+# copy that must not drift
+REBUILT = {"ecdlp.py": {"ECDLPTables.build", "par_decode"}}
+
 SOURCES = sorted(p.relative_to(REPO).as_posix() for p in PORT.rglob("*.py")) + ["chip_smoke.py"]
 COPIES = sorted(
     p.relative_to(PORT).as_posix()
     for pattern in ("*.py", "*.cpp", "*.inc")
     for p in PORT.rglob(pattern)
     if p.relative_to(PORT).as_posix() not in PORTED and (JAX_PKG / p.relative_to(PORT)).exists()
+)
+
+
+def _definitions(path: pathlib.Path) -> dict[str, str]:
+    """{name: source} of the module's functions, classes and assignments, a
+    class's methods as ``Class.method`` and the rest of its body as
+    ``Class``; imports and the module docstring are left out."""
+    lines = path.read_text().splitlines(keepends=True)
+
+    def source(node):
+        first = min([node.lineno] + [d.lineno for d in getattr(node, "decorator_list", [])])
+        return "".join(lines[first - 1 : node.end_lineno])
+
+    def name_of(node):
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            return node.name
+        if isinstance(node, ast.Assign) and len(node.targets) == 1 and isinstance(node.targets[0], ast.Name):
+            return node.targets[0].id
+        if isinstance(node, ast.AnnAssign) and isinstance(node.target, ast.Name):
+            return node.target.id
+        return None
+
+    defs = {}
+    for node in ast.parse("".join(lines), str(path)).body:
+        name = name_of(node)
+        if isinstance(node, ast.ClassDef):
+            rest = []
+            for member in node.body:
+                if isinstance(member, ast.FunctionDef):
+                    defs[f"{name}.{member.name}"] = source(member)
+                else:
+                    rest.append(source(member))
+            defs[name] = "".join(rest)
+        elif name is not None:
+            defs[name] = source(node)
+    return defs
+
+
+COPIED_DEFS = sorted(
+    (rel, name) for rel, rebuilt in REBUILT.items() for name in _definitions(JAX_PKG / rel) if name not in rebuilt
 )
 
 
@@ -77,6 +124,20 @@ def test_host_layer_copy_has_not_drifted(rel):
         want, n = re.subn(old, lambda _: new, want, count=1, flags=re.S)
         assert n == 1, f"{rel}: the JAX package changed where the port's edit sits"
     assert (PORT / rel).read_text() == want
+
+
+@pytest.mark.parametrize("rel,name", COPIED_DEFS, ids=[f"{r}::{n}" for r, n in COPIED_DEFS])
+def test_ported_module_copies_have_not_drifted(rel, name):
+    want = CITATION.sub("xelis-he/", _definitions(JAX_PKG / rel)[name].replace("xelis_he_tpu", "xelis_he_tpu_torch"))
+    assert _definitions(PORT / rel).get(name) == want
+
+
+def test_rebuilt_definitions_exist_in_both_packages():
+    """The names that ``REBUILT`` exempts from the drift check still name a
+    definition on each side, so that the check covers the rest of each module."""
+    for rel, rebuilt in REBUILT.items():
+        assert rel in PORTED
+        assert rebuilt <= set(_definitions(JAX_PKG / rel)) and rebuilt <= set(_definitions(PORT / rel))
 
 
 def test_copy_covers_the_host_layer():

@@ -529,39 +529,17 @@ class Accelerator:
         32-byte encodings or host points (no generator markers: shared lanes
         go in the final combine); sig_entries: this chunk's (signature,
         pubkey, compressed, message) tuples."""
-        from ..elgamal import H as _H
         from ..metrics import span
 
         sigma_sc, sigma_pts = sigma
         range_sc, range_pts = range_
         n_sigs = len(sig_entries)
         ns, nr, nk = self._chunk_sizes(len(sigma_sc), len(range_sc), n_sigs, floors)
-        sig_s, sig_e, sig_pts = self._sig_lanes(sig_entries)
         with span("fused_check.prep_chunk"):
-            all_scalars = _np.concatenate(
-                [
-                    self._pad_scalar_bytes(sigma_sc, ns),
-                    self._pad_scalar_bytes(range_sc, nr),
-                    self._pad_scalar_bytes(sig_s, nk),
-                    self._pad_scalar_bytes(sig_e, nk),
-                ]
+            tables, idx_arr, all_scalars = self._lane_layout(
+                [(sigma_pts, ns, sigma_sc), (range_pts, nr, range_sc), *self._sig_groups(sig_entries, nk)]
             )
-            m_block = self.block_row_base()
-            extras: list[RistrettoPoint] = [IDENTITY]
-            extra_ids: dict = {}
-            idx_arr = _np.concatenate(
-                [
-                    self._resolve_lane_points(group_pts, total, m_block, 0, extras, extra_ids)
-                    for group_pts, total in (
-                        (list(sigma_pts), ns),
-                        (list(range_pts), nr),
-                        ([_H] * n_sigs, nk),
-                        (sig_pts, nk),
-                    )
-                ]
-            )
-            extras_rows = rows_to_device(self._points_to_rows(extras), self.device)
-            return self._dispatch_chunk(idx_arr, all_scalars, extras_rows, ns, nr, nk, n_sigs)
+            return self._dispatch_chunk(idx_arr, all_scalars, tables[-1], ns, nr, nk, n_sigs)
 
     def chunk_lanes_begin_rows(
         self, sigma, range_, sigs, extras_rows, floors=None
@@ -625,23 +603,9 @@ class Accelerator:
         nr_s = self._round_up(len(range_sc), g1)
 
         with span("fused_check.prep_final"):
-            gens_rows = self._gens_of(range_pts)
-            k_gens = int(gens_rows.shape[0]) if gens_rows is not None else 0
-            scal = _np.concatenate(
-                [self._pad_scalar_bytes(sigma_sc, ns_s), self._pad_scalar_bytes(range_sc, nr_s)]
+            tables, idx_arr, scal = self._lane_layout(
+                [(sigma_pts, ns_s, sigma_sc), (range_pts, nr_s, range_sc)], self._gens_of(range_pts)
             )
-            blk = self._block_state()
-            m_block = self.block_row_base()
-            extras: list[RistrettoPoint] = [IDENTITY]
-            extra_ids: dict = {}
-            idx_arr = _np.concatenate(
-                [
-                    self._resolve_lane_points(list(sigma_pts), ns_s, m_block, k_gens, extras, extra_ids),
-                    self._resolve_lane_points(list(range_pts), nr_s, m_block, k_gens, extras, extra_ids),
-                ]
-            )
-            extra_rows = rows_to_device(self._points_to_rows(extras), self.device)
-            tables = [t for t in (blk.rows, gens_rows, extra_rows) if t is not None]
 
             shared, _ = self._run_lanes(
                 tables, to_device(idx_arr, self.device), to_device(scal, self.device), ns_s, nr_s, 0
@@ -724,6 +688,14 @@ class Accelerator:
         ]
         return sig_s, sig_e, sig_pts
 
+    def _sig_groups(self, sig_entries, nk):
+        """The signature lanes as two ``_lane_layout`` groups of ``nk`` lanes:
+        (H, s) and (public key, (-e) mod L)."""
+        from ..elgamal import H as _H
+
+        sig_s, sig_e, sig_pts = self._sig_lanes(sig_entries)
+        return [([_H] * len(sig_entries), nk, sig_s), (sig_pts, nk, sig_e)]
+
     def _gens_of(self, range_pts):
         """The generator rows a ``("__bp_gens__", n, m)`` marker among the
         range points stands for (None without one)."""
@@ -732,6 +704,25 @@ class Accelerator:
                 _, nb, m = p
                 return self._gens_rows(nb, m)
         return None
+
+    def _lane_layout(self, groups, gens_rows=None):
+        """The lanes of ``groups`` [(points, lanes, scalars), ...] one group
+        after another, each padded to its lane count with the identity and
+        zero scalars.  Points are gathered from [block | gens | extras]; the
+        extras start with the identity.  Returns (tables, (n,) int32 row
+        indices, (n, 32) uint8 scalars)."""
+        k_gens = int(gens_rows.shape[0]) if gens_rows is not None else 0
+        m_block = self.block_row_base()
+        extras: list[RistrettoPoint] = [IDENTITY]
+        extra_ids: dict = {}
+        idx_arr = _np.concatenate(
+            [self._resolve_lane_points(list(pts), total, m_block, k_gens, extras, extra_ids)
+             for pts, total, _ in groups]
+        )
+        scal = _np.concatenate([self._pad_scalar_bytes(sc, total) for _, total, sc in groups])
+        extra_rows = rows_to_device(self._points_to_rows(extras), self.device)
+        tables = [t for t in (self._block_state().rows, gens_rows, extra_rows) if t is not None]
+        return tables, idx_arr, scal
 
     def _single_lanes(self, tables, idx_arr, scal):
         """K5 over lanes gathered by ``idx_arr`` from ``tables``, with their
@@ -743,6 +734,9 @@ class Accelerator:
     def _signatures_ok(self, sig_ok, sig_entries, r_bytes) -> bool:
         return sig_ok and all(_challenge_matches(e, r) for e, r in zip(sig_entries, r_bytes))
 
+    def _sig_lane_count(self, sig_entries) -> int:
+        return self._round_up(len(sig_entries), self._single_lane_granules()[1]) if sig_entries else 0
+
     def fused_block_begin(self, sigma, sig_entries):
         """Dispatch the sigma and signature lanes WITHOUT waiting (K5); the
         device computes them while the caller folds the range proofs on the
@@ -751,33 +745,15 @@ class Accelerator:
         sigma: (scalars, points) with points as block-row indices, 32-byte
         encodings or host points; sig_entries: (signature, public key point
         or encoding, compressed key, message) tuples."""
-        from ..elgamal import H as _H
         from ..metrics import span
 
         sigma_sc, sigma_pts = sigma
-        g1, g2 = self._single_lane_granules()
-        ns = self._round_up(len(sigma_sc), g1)
-        nk = self._round_up(len(sig_entries), g2) if sig_entries else 0
-        sig_s, sig_e, sig_pts = self._sig_lanes(sig_entries)
+        ns = self._round_up(len(sigma_sc), self._single_lane_granules()[0])
+        nk = self._sig_lane_count(sig_entries)
         with span("fused_check.prep_a"):
-            scal = _np.concatenate(
-                [self._pad_scalar_bytes(sigma_sc, ns), self._pad_scalar_bytes(sig_s, nk),
-                 self._pad_scalar_bytes(sig_e, nk)]
-            )
-            blk = self._block_state()
-            m_block = self.block_row_base()
-            extras: list[RistrettoPoint] = [IDENTITY]
-            extra_ids: dict = {}
-            idx_arr = _np.concatenate(
-                [
-                    self._resolve_lane_points(group_pts, total, m_block, 0, extras, extra_ids)
-                    for group_pts, total in ((list(sigma_pts), ns), ([_H] * len(sig_entries), nk), (sig_pts, nk))
-                ]
-            )
-            extra_rows = rows_to_device(self._points_to_rows(extras), self.device)
-            tables = [t for t in (blk.rows, extra_rows) if t is not None]
-            acc_a = self._single_lanes(tables, idx_arr, scal)  # no sync
-        return {"acc_a": acc_a, "ns": ns, "nk": nk, "m_block": m_block, "sig_entries": sig_entries}
+            layout = self._lane_layout([(sigma_pts, ns, sigma_sc), *self._sig_groups(sig_entries, nk)])
+            acc_a = self._single_lanes(*layout)  # no sync
+        return {"acc_a": acc_a, "ns": ns, "nk": nk, "sig_entries": sig_entries}
 
     def fused_block_finish(self, state, range_):
         """Dispatch the range lanes (K5), combine them with phase A on the
@@ -790,19 +766,10 @@ class Accelerator:
         from ..metrics import span
 
         range_sc, range_pts = range_
-        ns, nk, m_block = state["ns"], state["nk"], state["m_block"]
+        ns, nk, acc_a = state["ns"], state["nk"], state["acc_a"]
         nr = self._round_up(len(range_sc), self._single_lane_granules()[0])
         with span("fused_check.prep_b"):
-            scal = self._pad_scalar_bytes(range_sc, nr)
-            gens_rows = self._gens_of(range_pts)
-            k_gens = int(gens_rows.shape[0]) if gens_rows is not None else 0
-            extras: list[RistrettoPoint] = [IDENTITY]
-            idx_arr = self._resolve_lane_points(list(range_pts), nr, m_block, k_gens, extras, {})
-            extra_rows = rows_to_device(self._points_to_rows(extras), self.device)
-            blk = self._block_state()
-            tables = [t for t in (blk.rows, gens_rows, extra_rows) if t is not None]
-            acc_r = self._single_lanes(tables, idx_arr, scal)
-            acc_a = state["acc_a"]
+            acc_r = self._single_lanes(*self._lane_layout([(range_pts, nr, range_sc)], self._gens_of(range_pts)))
             sums2, r = self._lane_sums(torch.cat([acc_a[:ns], acc_r, acc_a[ns:]]), ns, nr, nk)
             pending = self._packed_result(sums2, [r])
         sigma_ok, range_ok, sig_ok, r_bytes = self._pull_result(pending)
@@ -813,37 +780,19 @@ class Accelerator:
         the lanes [sigma | range | sig_s | sig_e] in one launch of K5, points
         gathered from [block | gens | extras].  Returns (sigma_ok, range_ok,
         sig_ok) with one host sync."""
-        from ..elgamal import H as _H
         from ..metrics import span
 
         sigma_sc, sigma_pts = sigma
         range_sc, range_pts = range_
-        g1, g2 = self._single_lane_granules()
-        ns = self._round_up(len(sigma_sc), g1)
-        nr = self._round_up(len(range_sc), g1)
-        nk = self._round_up(len(sig_entries), g2) if sig_entries else 0
-        sig_s, sig_e, sig_pts = self._sig_lanes(sig_entries)
+        g1 = self._single_lane_granules()[0]
+        ns, nr = self._round_up(len(sigma_sc), g1), self._round_up(len(range_sc), g1)
+        nk = self._sig_lane_count(sig_entries)
         with span("fused_check.prep"):
-            scal = _np.concatenate(
-                [self._pad_scalar_bytes(sigma_sc, ns), self._pad_scalar_bytes(range_sc, nr),
-                 self._pad_scalar_bytes(sig_s, nk), self._pad_scalar_bytes(sig_e, nk)]
+            layout = self._lane_layout(
+                [(sigma_pts, ns, sigma_sc), (range_pts, nr, range_sc), *self._sig_groups(sig_entries, nk)],
+                self._gens_of(range_pts),
             )
-            gens_rows = self._gens_of(range_pts)
-            k_gens = int(gens_rows.shape[0]) if gens_rows is not None else 0
-            blk = self._block_state()
-            m_block = self.block_row_base()
-            extras: list[RistrettoPoint] = [IDENTITY]
-            extra_ids: dict = {}
-            idx_arr = _np.concatenate(
-                [
-                    self._resolve_lane_points(group_pts, total, m_block, k_gens, extras, extra_ids)
-                    for group_pts, total in ((list(sigma_pts), ns), (list(range_pts), nr),
-                                             ([_H] * len(sig_entries), nk), (sig_pts, nk))
-                ]
-            )
-            extra_rows = rows_to_device(self._points_to_rows(extras), self.device)
-            tables = [t for t in (blk.rows, gens_rows, extra_rows) if t is not None]
-            sums2, r = self._lane_sums(self._single_lanes(tables, idx_arr, scal), ns, nr, nk)
+            sums2, r = self._lane_sums(self._single_lanes(*layout), ns, nr, nk)
             pending = self._packed_result(sums2, [r])
         sigma_ok, range_ok, sig_ok, r_bytes = self._pull_result(pending)
         return sigma_ok, range_ok, self._signatures_ok(sig_ok, sig_entries, r_bytes)
