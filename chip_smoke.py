@@ -7,7 +7,7 @@
 Phases, each of which fails the run loudly:
 
 1. card: the CUDA device's name, power limit and maximum SM clock;
-2. build: nvcc compiles the eight kernels of xelis_he_tpu_torch/csrc (K1-K8),
+2. build: nvcc compiles the ten kernels of xelis_he_tpu_torch/csrc (K1-K10),
    one process each, side by side;
 3. kernels vs plain: each kernel's wrapper on the card against its plain
    PyTorch version on the card, on edge cases (bit-exact: every output is
@@ -18,8 +18,8 @@ Phases, each of which fails the run loudly:
    and K6 at a ragged slot count, K3 at tiles from 1 to 1024, K7 at lane
    counts that leave a quad of threads or a warp partly filled, K8 at 1 to
    8,193 lanes with either side broadcast or neither (sums and encodings);
-   ptxas must report no spills for K1 and K4, and its figures for K6, K7
-   and K8 are printed;
+   ptxas must report no spills for K1 and K4, and its figures for K6, K7,
+   K8, K9 and K10 are printed;
 4. main path: a block of ``--txs`` one-transfer transactions, built as
    bench.py builds it, verified through xelis_he_tpu_torch.verify_batch on
    ``Accelerator()``: one counted verify (launch counts, synchronising calls,
@@ -52,6 +52,21 @@ Phases, each of which fails the run loudly:
     pyref, a flat save/load round trip, ``par_decode`` of 16 values in
     [0, 2^44) at 8,192 lanes a round, one with a negative ``range_min`` and
     one out of range (None);
+11a. the mesh: ``ShardedMsm`` and ``MultiDeviceMsm`` on a mesh that lists the
+    card twice (and ``ShardedMsm`` on ``make_mesh()``), at 512 and 49,152
+    lanes, equal to ``accel.msm`` by encoding and to pyref at 64 lanes, with
+    the shard sizes K7 sees; the block verified on
+    ``Accelerator(mesh=<the card twice>)``: accepted with the default verify's
+    balances, K2 launched twice a chunk, the first chunk's two shards held to
+    K2's plain version, ms/tx beside the default verify's;
+11b. multi-process accept: two worker processes on the card
+    (``python -m xelis_he_tpu_torch.parallel._dcn_worker``, gloo) each verify
+    their round-robin half of the block and both print ACCEPT; with one fee
+    tampered on rank 1's half, both print REJECT; wall time of each;
+11c. Pippenger: ``MsmEngine(window=13).msm_points`` at 65,536 points (K9,
+    K10) equal to ``accel.msm`` by encoding and to pyref at 64 points, K9
+    on a window whose lanes all share one digit, each launch held to its
+    plain version, the call's time beside ``accel.msm``'s;
 12. kernel times: each kernel on the inputs of its largest launch on its
     path, as device time (torch.profiler's records of it over 5 calls) and
     as the time of a call in a run of 10 back to back (CUDA events: for a
@@ -60,8 +75,9 @@ Phases, each of which fails the run loudly:
     bound; K3 also at every other shape the path launches it at (the group
     sums of ``sum_points`` among them), with phase 10's launches beside
     them; each kernel's mismatch count covers phase 10's launches too;
-13. trace: one more default verify under torch.profiler, whose CUDA activity
-    gives the device's busy time and idle share during a verify.
+13. trace: one more default verify under utils.profiling.trace
+    (torch.profiler, CPU and CUDA activity), whose CUDA events give the
+    device's busy time and idle share during a verify.
 
 Every path is driven with the launch counts set to 0 just before it and read
 just after.  Standard output ends with one {"kernels": [...]} JSON line, the
@@ -122,11 +138,17 @@ KERNELS = {
     # no Pallas kernel: the JAX package's ECDLP adds and encodes in XLA
     "add_compress": ("xelis_he_tpu_torch/csrc/add_compress.cu", "xelis_he_tpu/ecdlp.py:228",
                      "add_compress_kernel"),
+    # no Pallas kernel: the JAX package's Pippenger scans and reduces in XLA
+    "bucket_sums": ("xelis_he_tpu_torch/csrc/bucket_sums.cu", "xelis_he_tpu/ops/msm.py:170",
+                    "bucket_sums_kernel"),
+    "window_sums": ("xelis_he_tpu_torch/csrc/window_sums.cu", "xelis_he_tpu/ops/msm.py:195",
+                    "window_sums_kernel"),
 }
 # the library (csrc/<name>.cu, ops/_build.py) each kernel is built into
 LIBS = {name: pathlib.Path(src).stem for name, (src, _, _) in KERNELS.items()}
 # kernels whose ptxas figures the build phase and --kernels-from print
-BUILD_FIGURES = ("decompress", "compress", "windowed_lanes_k8_fe15", "daa_lanes", "add_compress")
+BUILD_FIGURES = ("decompress", "compress", "windowed_lanes_k8_fe15", "daa_lanes", "add_compress", "bucket_sums",
+                 "window_sums")
 # the kernels of the default verify (phase 4); the others run on the paths of phases 6-11
 DEFAULT_PATH = ("decompress", "windowed_lanes_k8", "tile_sums", "compress")
 # the kernels of the fused block without the fold library (phase 10)
@@ -570,6 +592,8 @@ class Recorder:
     def __call__(self, *args):
         if self.name in ("windowed_lanes_k8", "windowed_lanes_k8_fe15"):
             size = args[0].shape[1]
+        elif self.name == "window_sums":
+            size = args[0].shape[0] * args[0].shape[1]
         elif self.name == "add_compress":
             size = max(args[0].shape[0], args[1].shape[0])
         else:
@@ -1137,30 +1161,263 @@ def ecdlp_path(rng: random.Random, accel):
     return launches["add_compress"], recs["add_compress"], out
 
 
-def trace_verify(txs, ledger, accel) -> dict:
-    """Phase 7: one verify under torch.profiler (CUDA activity only).  The
-    device is busy for the union of the traced kernels' and copies'
-    intervals; the idle share is the rest of the traced verify's wall time."""
+def card_points(txs, accel, n: int):
+    """n host points: the block's encodings (repeated as needed) through
+    ``decompress_many``."""
+    from xelis_he_tpu_torch.tx.verify import _collect_compressed
+
+    encs = _collect_compressed(txs)
+    encs = (encs * (n // len(encs) + 1))[:n]
+    pts, valid = accel.decompress_many(encs)
+    if not all(valid):
+        raise AssertionError("decompress_many rejected an encoding of the block")
+    return pts
+
+
+def host_ms(fn, reps: int = 3) -> float:
+    """Median host-clock time of ``fn`` (its result pulled, so it ends after
+    its device work), after one warm call."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def mesh_path(rng: random.Random, txs, ledger, accel, want_balances, default_k2: int, default_ms_per_tx: float,
+              sizes=(64, 512, 49_152)):
+    """Phase 11a.  Returns (the phase's figures, {name: (mismatches,
+    max_abs_err)} of the K7 and K2 launches held to their plain versions)."""
+    import torch
 
     from xelis_he_tpu_torch import verify_batch
+    from xelis_he_tpu_torch.metrics import metrics
+    from xelis_he_tpu_torch.ops import kernels as K
+    from xelis_he_tpu_torch.ops.accel import Accelerator
+    from xelis_he_tpu_torch.parallel import MultiDeviceMsm, ShardedMsm, make_mesh
+    from xelis_he_tpu_torch.pyref.ristretto import multiscalar_mul
+
+    twice = make_mesh(devices=["cuda:0", "cuda:0"])
+    single = make_mesh()
+    log(f"  meshes: {twice} (the card twice) and make_mesh() = {single}")
+    out, errs = {"msm": []}, {"daa_lanes": [], "windowed_lanes_k8": []}
+    pts = card_points(txs, accel, max(sizes))
+    scal = [rng.randrange(L) for _ in pts]
+    for n in sizes:
+        want = accel.msm(scal[:n], pts[:n])
+        if n == 64 and want != multiscalar_mul(scal[:n], pts[:n]):
+            raise AssertionError("accel.msm disagrees with pyref at 64 lanes")
+        engines = [("ShardedMsm, the card twice", ShardedMsm(twice)),
+                   ("MultiDeviceMsm, the card twice", MultiDeviceMsm(twice.devices))]
+        if n == sizes[1]:
+            engines.append(("ShardedMsm, make_mesh()", ShardedMsm(single)))
+        for what, engine in engines:
+            got, launches, _, recs = counted(lambda: engine.msm_points(scal[:n], pts[:n]), ("daa_lanes",),
+                                             keep_all=True)
+            expect_launched(f"{what}, {n} lanes", launches, ("daa_lanes", "tile_sums"))
+            if got.compress() != want.compress():
+                raise AssertionError(f"{what} at {n} lanes disagrees with accel.msm")
+            shards = [c[0].shape[0] for c in recs["daa_lanes"].calls]
+            if n == sizes[1]:  # each K7 launch of a shard held to its plain version
+                errs["daa_lanes"] += [expect_equal(f"K7, a shard of {what}", K.daa_lanes(*c),
+                                                   K.daa_lanes_plain(*c)) for c in recs["daa_lanes"].calls]
+            ms = host_ms(lambda: engine.msm_points(scal[:n], pts[:n]))
+            log(f"  {what}, {n} lanes: equal to accel.msm{' and pyref' if n == 64 else ''}; K7 shards {shards}; "
+                f"{ms:.1f} ms a call (host clock)")
+            out["msm"].append({"what": what, "lanes": n, "k7_shards": shards, "ms": ms})
+            if n == sizes[-1] and engine is engines[0][1]:
+                # K7 on one shard against K7 on both shards' lanes in one launch
+                half = recs["daa_lanes"].calls[0]
+                both = tuple(torch.cat([a, b], dim=-1 if a.dim() == 2 else 0).contiguous()
+                             for a, b in zip(half, recs["daa_lanes"].calls[1]))
+                k7 = {"shard_lanes": shards[0], "shard_ms": device_ms(lambda: K.daa_lanes(*half), "daa_lanes_kernel"),
+                      "whole_lanes": both[0].shape[0], "whole_ms": device_ms(lambda: K.daa_lanes(*both),
+                                                                            "daa_lanes_kernel")}
+                out["k7_at_shard_size"] = k7
+                log(f"  K7 on the device: one shard of {shards[0]} lanes {k7['shard_ms']:.4f} ms, the "
+                    f"{k7['whole_lanes']} lanes in one launch {k7['whole_ms']:.4f} ms")
+        out["msm"].append({"what": "accel.msm", "lanes": n, "ms": host_ms(lambda: accel.msm(scal[:n], pts[:n]))})
+
+    # the block on the card twice: K2 twice a chunk, the first chunk's shards held to plain
+    sharded = Accelerator(mesh=twice)
+    verify_batch(txs, ledger.clone(), accel=sharded)  # warm-up
+    state = ledger.clone()
+    metrics.reset()
+    _, launches, syncs, recs = counted(lambda: verify_batch(txs, state, accel=sharded), ("windowed_lanes_k8",),
+                                       keep_all=True)
+    expect_launched("sharded verify", launches, DEFAULT_PATH, ("windowed_lanes", "windowed_lanes_k8_fe15"))
+    calls = recs["windowed_lanes_k8"].calls
+    slots = [c[0].shape[1] for c in calls]
+    log(f"  sharded verify: K2 launches {launches['windowed_lanes_k8']} (default verify {default_k2}), "
+        f"slots a launch {slots}; synchronising calls {syncs}")
+    if launches["windowed_lanes_k8"] != 2 * default_k2 or slots[0] != slots[1]:
+        raise AssertionError("the sharded verify must launch K2 twice a chunk, on equal shards")
+    no_host_path_blocks()
+    if ledger_balances(state) != want_balances:
+        raise AssertionError("sharded verify: balances differ from the default verify's")
+    errs["windowed_lanes_k8"] += [expect_equal(f"K2, shard {i} of the first chunk", K.windowed_lanes_k8(*calls[i]),
+                                               K.windowed_lanes_k8_plain(*calls[i])) for i in (0, 1)]
+    # the sharded and the default verify in turns (default, sharded, sharded, default, ...)
+    times = {"default": [], "sharded": []}
+    for which in ("default", "sharded", "sharded", "default") * 2:
+        timed = ledger.clone()
+        t0 = time.perf_counter()
+        verify_batch(txs, timed, accel=sharded if which == "sharded" else accel)
+        times[which].append((time.perf_counter() - t0) * 1e3 / len(txs))
+    out["sharded_verify"] = {"k2_launches": launches["windowed_lanes_k8"], "k2_slots": slots,
+                             "best_ms_per_tx": min(times["sharded"]), "p50_ms_per_tx": statistics.median(times["sharded"]),
+                             "default_best_ms_per_tx": min(times["default"]),
+                             "default_p50_ms_per_tx": statistics.median(times["default"]),
+                             "phase4_best_ms_per_tx": default_ms_per_tx}
+    log(f"  sharded verify: accepted, the default verify's balances; in turns with the default verify, "
+        f"best {min(times['sharded']):.4f} ms/tx (default {min(times['default']):.4f}), "
+        f"p50 {statistics.median(times['sharded']):.4f} (default {statistics.median(times['default']):.4f})")
+    return out, {k: worst(*v) for k, v in errs.items()}
+
+
+def dcn_path(txs, ledger) -> dict:
+    """Phase 11b: two processes share the card over gloo; every process this
+    starts is stopped before it returns."""
+    import pickle
+    import socket
+    import tempfile
+
+    from xelis_he_tpu_torch.carry import ledger_snapshot
+    from xelis_he_tpu_torch.tx.wire import encode_transaction
+
+    snap = ledger_snapshot(ledger)
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for tamper in (False, True):
+            block = list(txs)
+            if tamper:
+                block[1] = copy.deepcopy(txs[1])
+                block[1].fee = 7  # rank 1's half
+            path = pathlib.Path(tmp) / f"block_{int(tamper)}.pkl"
+            path.write_bytes(pickle.dumps({"txs": [encode_transaction(tx) for tx in block], "ledger": snap}))
+            with socket.socket() as sock:
+                sock.bind(("127.0.0.1", 0))
+                port = sock.getsockname()[1]
+            t0 = time.perf_counter()
+            procs = [subprocess.Popen([sys.executable, "-m", "xelis_he_tpu_torch.parallel._dcn_worker", str(path),
+                                       f"127.0.0.1:{port}", "2", str(rank)], cwd=ROOT, stdout=subprocess.PIPE,
+                                      stderr=subprocess.PIPE, text=True) for rank in range(2)]
+            results = []
+            try:
+                for p in procs:
+                    stdout, stderr = p.communicate(timeout=600)
+                    results.append((p.returncode, stdout, stderr, time.perf_counter() - t0))
+            finally:
+                for p in procs:
+                    if p.poll() is None:
+                        p.kill()
+                        p.wait()
+            runs = []
+            for rank, (rc, stdout, stderr, wall) in enumerate(results):
+                if rc != 0:
+                    raise AssertionError(f"dcn worker {rank} exited {rc}: {stderr[-3000:]}")
+                lines = stdout.strip().splitlines()
+                runs.append({**json.loads(lines[-2]), "verdict": lines[-1], "wall_s": wall})
+            want = "REJECT" if tamper else "ACCEPT"
+            log(f"  two processes, {'fee tampered on rank 1' if tamper else 'valid block'}: {json.dumps(runs)}")
+            if [r["verdict"] for r in runs] != [want, want]:
+                raise AssertionError(f"multi-process verify: {[r['verdict'] for r in runs]}, want {want} twice")
+            out["tampered" if tamper else "valid"] = runs
+    return out
+
+
+def pippenger_path(rng: random.Random, txs, accel, n: int = 65_536):
+    """Phase 11c.  Returns (K9's and K10's launches, their Recorders, the
+    phase's figures, {name: (mismatches, max_abs_err)} of the other launches
+    held to their plain versions)."""
+    import torch
+
+    from xelis_he_tpu_torch.ops import kernels as K
+    from xelis_he_tpu_torch.ops.curve import Curve
+    from xelis_he_tpu_torch.ops.fe import Field
+    from xelis_he_tpu_torch.ops.msm import MsmEngine, bucket_runs, decompose_digits
+    from xelis_he_tpu_torch.pyref.ristretto import multiscalar_mul
+
+    names = ("bucket_sums", "window_sums")
+    engine = MsmEngine(Curve(Field(accel.device)), window=13)
+    pts = card_points(txs, accel, n)
+    scal = [rng.randrange(L) for _ in pts]
+    scal[:4] = [0, 1, L - 1, L - 1]
+    got, launches, syncs, recs = counted(lambda: engine.msm_points(scal, pts), names)
+    expect_launched(f"MsmEngine.msm_points, {n} points", launches, names,
+                    [k for k in launches if k not in names])
+    if launches["bucket_sums"] != 1 or launches["window_sums"] != 1:
+        raise AssertionError(f"msm_points must launch K9 and K10 once each: {launches}")
+    if got.compress() != accel.msm(scal, pts).compress():
+        raise AssertionError("MsmEngine.msm_points disagrees with accel.msm")
+    log(f"  msm_points at {n} points, window 13: equal to accel.msm; synchronising calls {syncs}")
+
+    errs = {name: [] for name in names}
+    small, small_launches, _, small_recs = counted(lambda: engine.msm_points(scal[:64], pts[:64]), names,
+                                                   keep_all=True)
+    if small != multiscalar_mul(scal[:64], pts[:64]):
+        raise AssertionError("MsmEngine.msm_points disagrees with pyref at 64 points")
+    for name in names:
+        errs[name] += [expect_equal(f"{name}, msm_points at 64 points", getattr(K, name)(*c),
+                                    getattr(K, name + "_plain")(*c)) for c in small_recs[name].calls]
+    # K9 when one bucket holds most of the lanes: every lane but two shares a scalar
+    skew_n = min(4096, n)
+    skew = [scal[7]] * (skew_n - 2) + [0, L - 1]
+    order, offsets = bucket_runs(decompose_digits(skew, 13), 13, accel.device)
+    rows = engine.curve.from_points(pts[:skew_n])
+    rows = torch.stack(rows, dim=1).to(torch.int32).contiguous()
+    buckets = K.bucket_sums(rows, order, offsets)
+    errs["bucket_sums"].append(expect_equal(f"K9, {skew_n} lanes, one bucket a window holding {skew_n - 2}",
+                                            buckets, K.bucket_sums_plain(rows, order, offsets)))
+    total = K.window_sums(buckets)
+    errs["window_sums"].append(expect_equal("K10 on those buckets", total, K.window_sums_plain(buckets)))
+    if bytes(K.compress(total).cpu().numpy()[0]) != multiscalar_mul(skew, pts[:skew_n]).compress():
+        raise AssertionError("K9 and K10 disagree with pyref when one bucket holds most lanes")
+    out = {"points": n, "window": 13, "msm_points_ms": host_ms(lambda: engine.msm_points(scal, pts)),
+           "accel_msm_ms": host_ms(lambda: accel.msm(scal, pts))}
+    log(f"  msm_points at {n} points: {out['msm_points_ms']:.1f} ms a call, accel.msm {out['accel_msm_ms']:.1f} ms "
+        f"(host clock, median of 3, host decomposition and point rows included)")
+    return ({k: launches[k] for k in names}, recs, out, {k: worst(*v) for k, v in errs.items()})
+
+
+def trace_verify(txs, ledger, accel) -> dict:
+    """Phase 13: one verify under utils.profiling.trace (torch.profiler, CPU
+    and CUDA activity; the trace file goes to a temporary directory).  The
+    device is busy for the union of the traced kernels' and copies'
+    intervals; the idle share is the rest of the traced verify's wall time,
+    which the CPU activity's recording lengthens."""
+    import tempfile
+
+    import torch
+
+    from xelis_he_tpu_torch import verify_batch
+    from xelis_he_tpu_torch.utils.profiling import annotate, trace
 
     state = ledger.clone()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with tempfile.TemporaryDirectory() as tmp, trace(tmp) as prof:
         t0 = time.perf_counter()
-        verify_batch(txs, state, accel=accel)
+        with annotate("chip_smoke.verify_batch"):
+            verify_batch(txs, state, accel=accel)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    # record_function ranges also appear on the device's timeline, spanning
+    # the kernels inside them: those are not device work
     spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
+                   if e.device_type == torch.autograd.DeviceType.CUDA and e.name != "chip_smoke.verify_batch"
+                   and not getattr(e, "is_user_annotation", False))
     busy_us, end = 0.0, float("-inf")
     for a, b in spans:
         if b > end:
             busy_us += b - max(a, end)
             end = b
     out = {"device_events": len(spans), "device_busy_ms": busy_us / 1e3, "traced_wall_ms": wall_ms,
-           "idle_share": 1 - busy_us / 1e3 / wall_ms if spans else None}
+           "idle_share": 1 - busy_us / 1e3 / wall_ms if spans else None,
+           "annotated": any(e.name == "chip_smoke.verify_batch" for e in prof.events())}
     log(f"  trace: {json.dumps(out)}")
     if not spans:
         log("  trace: no device events in the trace; the idle share is not measured")
@@ -1188,7 +1445,7 @@ def bound(name, args, clock_hz) -> tuple[str, float, str]:
     over the memory rate, whichever is larger."""
     from xelis_he_tpu_torch.ops import kernels as K
 
-    set_bits = 0
+    set_bits = doublings = 0
     if name == "decompress":
         n = args[0].shape[0]
         items, nbytes, shape = n, n * (32 + 288 + 1), f"{n} encodings"
@@ -1212,10 +1469,21 @@ def bound(name, args, clock_hz) -> tuple[str, float, str]:
         kept = 0 if sums_from is None else n - sums_from
         items, nbytes = n, (a.shape[0] + b.shape[0] + kept) * 288 + n * 32
         shape = f"{n} lanes ({a.shape[0]} + {b.shape[0]} rows, {kept} sums kept)"
+    elif name == "bucket_sums":
+        rows, order, offsets = args
+        n, w, nb = rows.shape[0], order.shape[0], offsets.shape[1] - 1
+        items = K.bucket_additions(offsets)
+        nbytes = n * 288 + w * n * 4 + w * (nb + 1) * 4 + w * (nb - 1) * 288
+        shape = f"{n} lanes, {w} windows of {nb - 1} buckets, {items} additions"
+    elif name == "window_sums":
+        w, nb = args[0].shape[0], args[0].shape[1] + 1
+        items, doublings = K.window_sums_work(w, nb.bit_length() - 1)
+        nbytes = (w * (nb - 1) + 1) * 288
+        shape = f"{w} windows of {nb - 1} buckets"
     else:
         n = args[0].shape[0]
         items, nbytes, shape = n, n * (288 + 32), f"{n} points"
-    ops_ms = K.muladds(name, items, set_bits) / (INT32_LANES * clock_hz) * 1e3
+    ops_ms = K.muladds(name, items, set_bits, doublings) / (INT32_LANES * clock_hz) * 1e3
     bytes_ms = nbytes / MEM_BYTES_PER_S * 1e3
     return shape, max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms else "bytes"
 
@@ -1486,7 +1754,7 @@ def main() -> int:
     # spills; K6's and K7's figures beside them
     builds = {}
     block_threads = {"decompress": 128, "compress": 128, "windowed_lanes_k8_fe15": 32 * K.K6_SPLIT,
-                     "daa_lanes": 32, "add_compress": 128}
+                     "daa_lanes": 32, "add_compress": 128, "bucket_sums": 128, "window_sums": K.K10_THREADS}
     for name in BUILD_FIGURES:
         threads = block_threads[name]
         info = ptxas_info(_build.ptxas_log[LIBS[name]], KERNELS[name][2])
@@ -1519,6 +1787,18 @@ def main() -> int:
         errs[name] = worst(errs[name], res)
     log("ECDLP:")
     launches["add_compress"], recorders["add_compress"], ecdlp = ecdlp_path(random.Random(args.seed + 2), accel)
+    log("the mesh (ShardedMsm, MultiDeviceMsm, Accelerator(mesh=)):")
+    mesh, mesh_errs = mesh_path(random.Random(args.seed + 3), *block, accel, balances,
+                                launches["windowed_lanes_k8"], per_tx["best_ms_per_tx"])
+    for name, res in mesh_errs.items():
+        errs[name] = worst(errs[name], res)
+    log("multi-process accept (two processes on the card, gloo):")
+    dcn = dcn_path(*block)
+    log("Pippenger (MsmEngine.msm_points, K9 and K10):")
+    pip_launches, pip_recs, pippenger, pip_errs = pippenger_path(random.Random(args.seed + 4), block[0], accel)
+    launches.update(pip_launches)
+    recorders.update(pip_recs)
+    errs.update(pip_errs)
 
     log("kernel times at each kernel's largest launch on its path:")
     rows = kernel_line(recorders, launches, errs, clock_hz)
@@ -1532,7 +1812,7 @@ def main() -> int:
     log("trace of one verify:")
     trace = trace_verify(*block, accel)
     print(json.dumps({"kernels": rows, "txs": args.txs, **per_tx, "fused_block": fused, "ecdlp": ecdlp,
-                      "trace": trace}), flush=True)
+                      "mesh": mesh, "dcn": dcn, "pippenger": pippenger, "trace": trace}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -6,13 +6,18 @@ proofs, the transaction model) imports no JAX, so the port keeps a
 byte-identical copy of it, with the package name changed and citations of
 the reference crate written as ``xelis-he/<path>``.  Only one edit is
 deliberate: the port's cache root (utils/cachedir.py).  The modules of
-``PORTED`` are rebuilt on torch, not copied: ops/msm.py keeps the
-double-and-add half of the engine (the Pippenger half waits), tx/verify.py,
-beside the torch device glue, drops the JAX device pump and the small-block
-host crossover, and ecdlp.py runs its table build and giant-step rounds on
-the port's add-and-compress kernel.  The rest of ecdlp.py (its arguments,
-the table's files and lookups, the host walk of ``decode``) is copied, and
-each of those definitions is held to the JAX package's (``COPIED_DEFS``)."""
+``PORTED`` are rebuilt on torch, not copied: ops/msm.py runs both engines on
+the port's kernels (Pippenger on the bucket and window kernels, double-and-
+add on the lanes kernel), tx/verify.py, beside the torch device glue, drops
+the JAX device pump and the small-block host crossover, ecdlp.py runs its
+table build and giant-step rounds on the port's add-and-compress kernel,
+parallel/ shards lanes over a list of torch devices and decides a block over
+torch.distributed, and utils/profiling.py traces with torch.profiler.  What
+those modules keep of the JAX package's (ecdlp.py's arguments, the table's
+files and lookups and the host walk of ``decode``; ops/msm.py's scalar
+decompositions and window constants; the mesh axis, ``shard_round_robin``,
+the parallel package's exports and ``kernel_report``) is copied, and each of
+those definitions is held to the JAX package's (``COPIED_DEFS``)."""
 
 import ast
 import pathlib
@@ -27,7 +32,8 @@ PORT = REPO / "xelis_he_tpu_torch"
 JAX_PKG = REPO / "xelis_he_tpu"
 
 # modules rebuilt on torch rather than copied
-PORTED = {"__init__.py", "ecdlp.py", "ops/fe.py", "ops/curve.py", "ops/msm.py", "ops/accel.py", "tx/verify.py"}
+PORTED = {"__init__.py", "ecdlp.py", "ops/fe.py", "ops/curve.py", "ops/msm.py", "ops/accel.py", "tx/verify.py",
+          "parallel/__init__.py", "parallel/mesh.py", "parallel/dcn.py", "utils/profiling.py"}
 # citations of the reference crate name a checkout directory in the JAX
 # package; the port writes them as paths inside the crate
 CITATION = re.compile(r"/\w+/reference/")
@@ -48,7 +54,18 @@ EDITS = {
 # the definitions of a PORTED module that the port rebuilds on torch; every
 # other top-level or class-level definition of the JAX package's module is a
 # copy that must not drift
-REBUILT = {"ecdlp.py": {"ECDLPTables.build", "par_decode"}}
+REBUILT = {
+    "ecdlp.py": {"ECDLPTables.build", "par_decode"},
+    "ops/msm.py": {"_combine_seg", "_inclusive_scan", "_tree_reduce", "MsmEngine", "MsmEngine.__init__",
+                   "MsmEngine._window_sum", "MsmEngine.msm", "MsmEngine.msm_daa_lanes", "MsmEngine.msm_daa",
+                   "MsmEngine.batch_dual_mul", "MsmEngine.msm_points"},
+    "parallel/__init__.py": set(),
+    "parallel/mesh.py": {"make_mesh", "ShardedMsm", "ShardedMsm.__init__", "ShardedMsm.msm_device",
+                         "ShardedMsm.msm_points", "MultiDeviceMsm", "MultiDeviceMsm.__init__",
+                         "MultiDeviceMsm.msm_points"},
+    "parallel/dcn.py": {"init_process", "all_reduce_accept", "verify_batch_distributed"},
+    "utils/profiling.py": {"trace", "annotate"},
+}
 
 SOURCES = sorted(p.relative_to(REPO).as_posix() for p in PORT.rglob("*.py")) + ["chip_smoke.py"]
 COPIES = sorted(

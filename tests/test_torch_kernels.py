@@ -452,8 +452,14 @@ def test_wrappers_check_shapes_and_devices():
         K.add_compress(torch.zeros((3, 4, 18), dtype=torch.int32), torch.zeros((2, 4, 18), dtype=torch.int32))
     with pytest.raises(ValueError):
         K.add_compress(torch.zeros((3, 4, 18), dtype=torch.int32), torch.zeros((1, 4, 18), dtype=torch.int32), 4)
+    with pytest.raises(ValueError):
+        K.bucket_sums(torch.zeros((4, 4, 18), dtype=torch.int32), torch.zeros((2, 4), dtype=torch.int32),
+                      torch.zeros((2, 7), dtype=torch.int32))
+    with pytest.raises(ValueError):
+        K.window_sums(torch.zeros((2, 6, 4, 18), dtype=torch.int32))
     assert K.launches == {"decompress": 0, "windowed_lanes_k8": 0, "tile_sums": 0, "compress": 0,
-                          "windowed_lanes": 0, "windowed_lanes_k8_fe15": 0, "daa_lanes": 0, "add_compress": 0}
+                          "windowed_lanes": 0, "windowed_lanes_k8_fe15": 0, "daa_lanes": 0, "add_compress": 0,
+                          "bucket_sums": 0, "window_sums": 0}
 
 
 # -- csrc/ed25519.cuh built for the host ----------------------------------------
@@ -488,6 +494,10 @@ def shim(tmp_path_factory):
     lib.shim_square.argtypes = [vp, vp, vp, i]
     lib.shim_reduce64.argtypes = [vp, vp, i]
     lib.shim_add_compress.argtypes = [vp, vp, vp, vp, i, i, i, i]
+    lib.shim_bucket_sums.argtypes = [vp, vp, vp, vp, i, i, i]
+    lib.shim_window_sums.argtypes = [vp, vp, i, i]
+    lib.shim_k9_levels.restype = i
+    lib.shim_k10_threads.restype = i
     lib.shim_k2_split.restype = i
     lib.shim_k3_sub.restype = i
     lib.shim_k6_split.restype = i
@@ -789,3 +799,88 @@ def test_cuh_add_compress_matches_plain(shim):
         want_enc, want_sums = K.add_compress_plain(torch.from_numpy(a), torch.from_numpy(b), 2)
         assert np.array_equal(enc, want_enc.numpy())
         assert np.array_equal(sums, want_sums.numpy())
+
+
+# -- K9, K10 --------------------------------------------------------------------
+
+PIP_WINDOW = 10  # 26 windows of 1,023 buckets: K10 at its 256 threads, 4 buckets a chunk
+
+
+def _pippenger_cases():
+    """(scalars, points) of 24 lanes: the edge scalars and random ones, an
+    identity point and repeated points; then the same lanes with one scalar
+    repeated on all but two, so that in each window one bucket holds most
+    of the lanes."""
+    pts = LANE_PTS
+    yield LANE_SCAL, pts
+    skew = [LANE_SCAL[5]] * (len(pts) - 2) + [0, L - 1]
+    yield skew, pts
+
+
+def _k9_inputs(scalars, points, c=PIP_WINDOW):
+    from xelis_he_tpu_torch.ops.msm import bucket_runs, decompose_digits
+
+    order, offsets = bucket_runs(decompose_digits(scalars, c), c, "cpu")
+    return np.ascontiguousarray(_rows(points).view(np.int32)), order, offsets
+
+
+@pytest.mark.parametrize("case", range(2))
+def test_bucket_sums_plain_is_the_jax_packages_scan(case):
+    """K9's plain version, window by window, against the JAX package's
+    segmented scan (numpy) over the same sorted lanes: the buckets' last
+    elements, row for row."""
+    from xelis_he_tpu.ops.msm import _inclusive_scan as jax_scan
+
+    rows, order, offsets = _k9_inputs(*list(_pippenger_cases())[case])
+    got = K.bucket_sums(torch.from_numpy(rows), order, offsets).numpy()
+    nc, nb = numpy_curve(), (1 << PIP_WINDOW)
+    for w in range(order.shape[0]):
+        off = offsets[w].numpy().astype(np.int64)
+        ds = np.repeat(np.arange(nb), np.diff(off))
+        flags = ds != np.concatenate([ds[:1] - 1, ds[:-1]])
+        lanes = order[w].numpy()
+        _, scanned = jax_scan(nc, flags, tuple(rows.view(np.uint32)[lanes, c, :] for c in range(4)), False)
+        want = np.tile(K.identity_rows(1, "cpu").numpy(), (nb - 1, 1, 1))
+        for b in range(1, nb):
+            if off[b + 1] > off[b]:
+                want[b - 1] = _canon_rows(tuple(c[off[b + 1] - 1][None] for c in scanned))[0]
+        assert np.array_equal(got[w], want)
+
+
+@pytest.mark.parametrize("case", range(2))
+def test_cuh_bucket_sums_matches_plain(shim, case):
+    """K9's body built for the host, one bucket at a time: the plain
+    version's rows, and the run's length - 1 additions a bucket."""
+    assert shim.shim_k9_levels() == K.K9_LEVELS
+    rows, order, offsets = _k9_inputs(*list(_pippenger_cases())[case])
+    W, nb = order.shape[0], offsets.shape[1] - 1
+    out = np.zeros((W, nb - 1, 4, 18), np.int32)
+    shim.shim_reset_mul_count()
+    shim.shim_bucket_sums(_ptr(rows), _ptr(order.numpy()), _ptr(offsets.numpy()), _ptr(out), W, rows.shape[0],
+                          PIP_WINDOW)
+    assert _counts(shim) == (K.FIELD_MULS["bucket_sums"] * K.bucket_additions(offsets), 0)
+    assert np.array_equal(out, K.bucket_sums(torch.from_numpy(rows), order, offsets).numpy())
+
+
+@pytest.mark.parametrize("case", range(2))
+def test_cuh_window_sums_matches_plain_and_pyref(shim, case):
+    """K10's body built for the host, a window's threads stepped between
+    barriers: the plain version's rows, its executed work, and the MSM's
+    encoding as pyref computes it."""
+    assert shim.shim_k10_threads() == K.K10_THREADS
+    scalars, points = list(_pippenger_cases())[case]
+    buckets = K.bucket_sums(*(torch.from_numpy(a) if isinstance(a, np.ndarray) else a
+                              for a in _k9_inputs(scalars, points)))
+    W = buckets.shape[0]
+    out = np.zeros((1, 4, 18), np.int32)
+    shim.shim_reset_mul_count()
+    shim.shim_window_sums(_ptr(np.ascontiguousarray(buckets.numpy())), _ptr(out), W, PIP_WINDOW)
+    adds, dbls = K.k10_executed(W, PIP_WINDOW)
+    assert _counts(shim) == (adds * K.FIELD_MULS["window_sums"] + dbls * K.DBL_MULS, dbls * K.DBL_SQS)
+    with plain_calls() as calls:
+        want = K.window_sums(buckets).numpy()
+    assert calls["window_sums"] == 1
+    assert np.array_equal(out, want)
+    assert _row_enc(out) == [multiscalar_mul(scalars, points).compress()]
+    # the bound's work: the running-sum method's additions, under what the chunks execute
+    assert K.window_sums_work(W, PIP_WINDOW)[0] <= adds

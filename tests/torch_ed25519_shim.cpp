@@ -164,6 +164,62 @@ void shim_square(const uint32_t *f, uint32_t *out_mul, uint32_t *out_sq, int n) 
   }
 }
 
+// K9 as bucket_sums.cu runs it: one thread a bucket 1 .. 2^c - 1 of each window
+void shim_bucket_sums(const int32_t *rows, const int32_t *order, const int32_t *offsets, int32_t *out, int W,
+                      int N, int c) {
+  const int nb = 1 << c;
+  std::vector<ge> stack(K9_LEVELS);
+  for (int w = 0; w < W; ++w) {
+    const int32_t *off = offsets + (size_t)w * (nb + 1);
+    for (int b = 1; b < nb; ++b) {
+      ge sum;
+      if (off[b + 1] > off[b]) {
+        bucket_sum_one(sum, stack.data(), rows, order + (size_t)w * N, off[b], off[b + 1]);
+      } else {
+        ge_identity(sum);
+      }
+      ge_to_rows(out + 72 * ((size_t)w * (nb - 1) + b - 1), sum);
+    }
+  }
+}
+
+int shim_k9_levels(void) { return K9_LEVELS; }
+
+// K10 as window_sums.cu runs it: a window's T threads step by step between
+// the block's barriers, then the last block's Horner over the windows
+void shim_window_sums(const int32_t *buckets, int32_t *out, int W, int c) {
+  const int nb = 1 << c, T = nb / 2 < K10_THREADS ? nb / 2 : K10_THREADS, m = nb / T;
+  int log_m = 0;
+  while ((1 << log_m) < m) ++log_m;
+  std::vector<ge> sums(W), buf(T), acc(T), next(T);
+  for (int w = 0; w < W; ++w) {
+    for (int k = 0; k < T; ++k) window_chunk(buf[k], acc[k], buckets + (size_t)w * (nb - 1) * 72, k, m);
+    for (int s = 1; s < T; s <<= 1) {
+      for (int k = 0; k < T; ++k) next[k] = suffix_node(buf.data(), k, s, T);
+      buf = next;
+    }
+    ge_identity(buf[0]);
+    for (int h = T / 2; h >= 1; h >>= 1)
+      for (int k = 0; k < h; ++k) tree_node(buf.data(), k, h);
+    ge x = buf[0];
+    buf = acc;
+    for (int h = T / 2; h >= 1; h >>= 1)
+      for (int k = 0; k < h; ++k) tree_node(buf.data(), k, h);
+    ge_dbl_n(x, log_m);
+    ge y = buf[0];
+    ge_add(y, y, x);
+    sums[w] = y;
+  }
+  ge total = sums[W - 1];
+  for (int v = W - 2; v >= 0; --v) {
+    ge_dbl_n(total, c);
+    ge_add(total, total, sums[v]);
+  }
+  ge_to_rows(out, total);
+}
+
+int shim_k10_threads(void) { return K10_THREADS; }
+
 unsigned long long shim_mul_count(void) { return xhe_mul_count; }
 
 unsigned long long shim_sq_count(void) { return xhe_sq_count; }

@@ -43,6 +43,25 @@ def ledger_from_snapshot(snap: dict) -> Ledger:
     return ledger
 
 
+def ledger_snapshot(ledger: Ledger) -> dict:
+    """The port's Ledger as ``ledger_from_snapshot`` takes it: plain bytes
+    and ints, which another process can load."""
+    return {
+        "accounts": [
+            {
+                "secret": acc.keypair.secret().scalar.to_bytes(32, "little"),
+                "balances": {a.data: ct.compress().data for a, ct in acc.balances.items()},
+                "nonce": acc.nonce,
+            }
+            for acc in ledger.accounts.values()
+        ],
+        "multisig": {
+            pk.data: (thr, [s.data for s in signers])
+            for pk, (signers, thr) in ledger.multisig_accounts.items()
+        },
+    }
+
+
 def txs_from_wire(blobs) -> list:
     """Wire-encoded transactions -> the port's Transaction objects."""
     from .tx.wire import decode_transaction

@@ -1122,4 +1122,92 @@ static XHE_HD void daa_write(int32_t *out, const ge &acc, int r) {
   fe_to_row15(out + 18 * r, c);
 }
 
+// -- K9: the bucket sums of Pippenger's windows.  A window's lanes are sorted
+// by digit, so bucket b is a run [lo, hi) of the sorted order.  Its sum is
+// the last element of the run in the JAX package's segmented Hillis-Steele
+// scan (xelis_he_tpu/ops/msm.py _inclusive_scan): at shift s, element j of
+// the run becomes x[j - s] + x[j] unless the run's head lies within s of it.
+// For the last element, at offset L = hi - lo - 1, that is a balanced binary
+// tree over the 2^K positions ending at L (2^K >= the run's length), whose
+// positions before the run's head are empty: a node with an empty left half
+// is its right half, with no addition.  bucket_sum_one walks the run once
+// and keeps one partial sum a level (a binary counter over the positions),
+// so it makes the run's length - 1 additions, in the scan's order and with
+// its operands on the same sides: the plain version's scan and the kernel
+// give the same rows.
+
+constexpr int K9_LEVELS = 21;  // partial sums a thread keeps: runs up to 2^20 lanes
+
+// the sum of rows[order[lo]], ..., rows[order[hi - 1]] (hi > lo) as the
+// scan's last element of the run; ``stack`` holds K9_LEVELS points
+static XHE_HD void bucket_sum_one(ge &out, ge *stack, const int32_t *rows, const int32_t *order, int lo,
+                                  int hi) {
+  const int len = hi - lo;
+  int levels = 0;
+  while ((1 << levels) < len) ++levels;
+  const int pad = (1 << levels) - len;  // the empty positions before the head
+  unsigned present = 0;                 // bit l: stack[l] holds a left sibling
+  ge node;
+#pragma unroll 1
+  for (int j = 0; j < len; ++j) {
+    const int pos = pad + j;
+    ge_from_rows(node, rows + 72 * (size_t)order[lo + j]);
+    int l = 0;
+#pragma unroll 1
+    while ((pos >> l) & 1) {  // node is a right child at level l
+      if ((present >> l) & 1u) {
+        ge_add(node, stack[l], node);
+        present &= ~(1u << l);
+      }
+      ++l;
+    }
+    stack[l] = node;
+    present |= 1u << l;
+  }
+  out = stack[levels];
+}
+
+// -- K10: the windows' weighted bucket sums, then Horner over the windows.
+// Window w's buckets 1 .. 2^c - 1 are cut into T chunks of m = 2^c / T
+// buckets (bucket 0, the dropped digit, is the first of chunk 0 and is never
+// read).  Thread k walks its chunk from the top: r runs over the suffix sums
+// and acc adds them, so acc_k = sum_j j S_{k m + j} and r ends at the chunk's
+// total T_k.  Then sum_b b S_b = sum_k acc_k + m sum_k k T_k, and
+// sum_k k T_k = sum_{k >= 1} R_k with R_k = sum_{j >= k} T_j.
+
+constexpr int K10_THREADS = 256;  // threads a window of K10, at most
+
+// thread k's chunk of a window whose bucket b (1 <= b < 2^c) is at
+// buckets + 72 (b - 1); m >= 2
+static XHE_HD void window_chunk(ge &r, ge &acc, const int32_t *buckets, int k, int m) {
+  const size_t first = (size_t)k * m;  // bucket k m + j is at row first + j - 1
+  ge s;
+  ge_from_rows(r, buckets + 72 * (first + m - 2));
+  acc = r;
+#pragma unroll 1
+  for (int j = m - 2; j >= 1; --j) {
+    ge_from_rows(s, buckets + 72 * (first + j - 1));
+    ge_add(r, r, s);
+    ge_add(acc, acc, r);
+  }
+  if (k > 0) {
+    ge_from_rows(s, buckets + 72 * (first - 1));
+    ge_add(r, r, s);
+  }
+}
+
+// one level of the suffix scan over buf[0 .. n): thread k's new value,
+// buf[k] + buf[k + s] (buf[k] where k + s is past the end)
+static XHE_HD ge suffix_node(const ge *buf, int k, int s, int n) {
+  ge v = buf[k];
+  if (k + s < n) ge_add(v, v, buf[k + s]);
+  return v;
+}
+
+// 2^n p, by n doublings
+static XHE_HD void ge_dbl_n(ge &p, int n) {
+#pragma unroll 1
+  for (int i = 0; i < n; ++i) ge_dbl(p, p, true);
+}
+
 }  // namespace xhe

@@ -21,7 +21,7 @@ import time
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = pathlib.Path(__file__).resolve().parents[2] / "build" / "xelis_he_tpu_torch"
 KERNELS = ("decompress", "windowed_lanes", "tile_sums", "compress",
-           "windowed_lane", "windowed_lanes_fe15", "daa_lanes", "add_compress")
+           "windowed_lane", "windowed_lanes_fe15", "daa_lanes", "add_compress", "bucket_sums", "window_sums")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -39,6 +39,8 @@ SIGNATURES = {
     "windowed_lanes_fe15": ("xhe_windowed_lanes_k8_fe15", [_vp, _vp, _vp, _vp, _int, _vp]),
     "daa_lanes": ("xhe_daa_lanes", [_vp, _vp, _vp, _int, _vp]),
     "add_compress": ("xhe_add_compress", [_vp, _vp, _vp, _vp, _int, _int, _int, _int, _vp]),
+    "bucket_sums": ("xhe_bucket_sums", [_vp, _vp, _vp, _vp, _int, _int, _int, _vp]),
+    "window_sums": ("xhe_window_sums", [_vp, _vp, _vp, _vp, _int, _int, _vp]),
 }
 
 _lock = threading.Lock()

@@ -38,7 +38,11 @@ else K5; then K3), ``verify_signatures`` (the signature slots, K4, one pull),
 ``compress_many`` (K4) and ``decompress_many[_lazy]`` (K1).
 
 Tensors live on ``device``: CUDA (the kernels) unless the caller passes
-``device="cpu"``, which runs the kernels' plain versions.  Launches are
+``device="cpu"``, which runs the kernels' plain versions.  With ``mesh=``
+(parallel.mesh.make_mesh) every lane-kernel launch (K2, K6, K5) is split
+along its slot or lane axis into one contiguous shard per mesh entry, each
+launched on its own device; the outputs are concatenated on the first
+device, where K3, K4 and the one pull run as without a mesh.  Launches are
 asynchronous on the current stream; uploads go from pinned memory without
 blocking, so the device works on chunk k while the host folds chunk k+1.
 
@@ -133,13 +137,19 @@ class Accelerator:
     the padding of the lane groups; small values keep CPU runs small.
     ``quad_lanes`` and ``fe15`` pick the lane kernel (module docstring); left
     at None they read ``XELIS_QUAD_LANES`` and ``XELIS_FE13`` at each use, as
-    the JAX package's ``use_quad`` and ``use_fe13`` do."""
+    the JAX package's ``use_quad`` and ``use_fe13`` do.  ``mesh`` shards the
+    lane kernels (module docstring); the accelerator's device is then the
+    mesh's first, and the lane granules grow by the mesh's size."""
 
     backend = "torch"
-    mesh = None  # as the JAX Accelerator's attribute: no sharded path in the port yet
 
     def __init__(self, device=None, tile: int = K.TILE, qtile: int = K.QTILE,
-                 quad_lanes: bool | None = None, fe15: bool | None = None):
+                 quad_lanes: bool | None = None, fe15: bool | None = None, mesh=None):
+        if mesh is not None:
+            if device is not None and torch.device(device) != mesh.devices[0]:
+                raise ValueError(f"device {device} is not the mesh's first device {mesh.devices[0]}")
+            device = mesh.devices[0]
+        self.mesh = mesh
         if device is None:
             if not torch.cuda.is_available():
                 raise RuntimeError(
@@ -182,9 +192,40 @@ class Accelerator:
 
     def _packed_lanes(self, pts: torch.Tensor, dig: torch.Tensor) -> torch.Tensor:
         """(8, S, 4, 18) points and (8, 64, S) digits -> (S, 4, 18) slot sums
-        through K2, or K6 under ``use_fe15``."""
+        through K2, or K6 under ``use_fe15``; sharded over the slots with a
+        mesh."""
         lanes = K.windowed_lanes_k8_fe15 if self.use_fe15 else K.windowed_lanes_k8
-        return lanes(pts.contiguous(), dig.contiguous())
+        return self._sharded(lanes, pts, dig, 1, 2)
+
+    def _single_lane_sums(self, rows: torch.Tensor, digits: torch.Tensor) -> torch.Tensor:
+        """(N, 4, 18) points and (64, N) digits -> (N, 4, 18) lanes s_i P_i
+        through K5; sharded over the lanes with a mesh."""
+        return self._sharded(K.windowed_lanes, rows, digits, 0, 1)
+
+    @property
+    def _shards(self) -> int:
+        return self.mesh.size if self.mesh is not None else 1
+
+    def _sharded(self, kernel, pts: torch.Tensor, dig: torch.Tensor, pts_axis: int, dig_axis: int):
+        """``kernel(pts, dig)`` without a mesh; with one, on mesh.size
+        contiguous shards of the slot or lane axis (``pts_axis`` of the
+        points, ``dig_axis`` of the digits), each launched on its own mesh
+        device before any output is gathered, the outputs concatenated on
+        this accelerator's device in shard order (the counterpart of the JAX
+        package's shard_map with an all_gather, pallas_msm.py
+        make_sharded_lanes_fn)."""
+        if self.mesh is None:
+            return kernel(pts.contiguous(), dig.contiguous())
+        n, d = pts.shape[pts_axis], self.mesh.size
+        if n % d:
+            raise ValueError(f"{n} lanes do not split into {d} equal shards: the lane granules keep them whole")
+        step = n // d
+        outs = [
+            kernel(pts.narrow(pts_axis, i * step, step).to(dev).contiguous(),
+                   dig.narrow(dig_axis, i * step, step).to(dev).contiguous())
+            for i, dev in enumerate(self.mesh.devices)
+        ]
+        return torch.cat([o.to(self.device) for o in outs])
 
     # -- padding rules -----------------------------------------------------------
 
@@ -194,23 +235,27 @@ class Accelerator:
         steps.  Single-lane: groups fill whole tiles of lanes, and the two
         lanes of each signature fill a tile together."""
         if self.use_quad:
-            return K.K_PACK * self.tile, self.qtile
+            return self._shards * K.K_PACK * self.tile, self._shards * self.qtile
         return self._single_lane_granules()
 
     def _single_lane_granules(self):
-        return self.tile, max(1, self.tile // 2)
+        """Both grow by the mesh's size, as the JAX package's
+        ``_pallas_lane_granules``: every shard holds whole tiles."""
+        d = self._shards
+        return d * self.tile, max(1, d * self.tile // 2)
 
     def _lane_granule(self, n: int) -> int:
         """Padded lane count of a generic MSM (``_msm_rows``; pad lanes hold
         the identity with zero scalars): power-of-two buckets with a 3/4
-        step, so that large counts fill whole packed tiles."""
+        step, so that large counts fill whole packed tiles, then a multiple
+        of the mesh's size."""
         if n <= 128:
-            return 128
-        p2 = max(self.tile, _next_pow2(n))
-        p34 = (p2 // 4) * 3
-        if n <= p34 and p34 % self.tile == 0:
-            return p34
-        return p2
+            padded = 128
+        else:
+            p2 = max(self.tile, _next_pow2(n))
+            p34 = (p2 // 4) * 3
+            padded = p34 if n <= p34 and p34 % self.tile == 0 else p2
+        return -(-padded // self._shards) * self._shards
 
     @staticmethod
     def _round_up(n: int, granule: int = 256) -> int:
@@ -470,7 +515,7 @@ class Accelerator:
         digits = K.recode_signed4_torch(scal)
         rows = _gather_rows(tables, idx)
         if not self.use_quad:
-            return self._lane_sums(K.windowed_lanes(rows.contiguous(), digits), ns, nr, nk)
+            return self._lane_sums(self._single_lane_sums(rows, digits), ns, nr, nk)
         gr = ns + nr
         pts, dig = self._group_lanes(rows, digits, gr)
         if nk:
@@ -729,7 +774,7 @@ class Accelerator:
         (n, 32) uint8 scalars: the (n, 4, 18) accumulators."""
         digits = K.recode_signed4_torch(to_device(scal, self.device))
         rows = _gather_rows(tables, to_device(idx_arr, self.device))
-        return K.windowed_lanes(rows.contiguous(), digits)
+        return self._single_lane_sums(rows, digits)
 
     def _signatures_ok(self, sig_ok, sig_entries, r_bytes) -> bool:
         return sig_ok and all(_challenge_matches(e, r) for e, r in zip(sig_entries, r_bytes))
@@ -814,15 +859,15 @@ class Accelerator:
 
     def _msm_rows(self, scalars, points) -> torch.Tensor:
         """sum s_i P_i as (1, 4, 18) canonical device rows, without a sync.
-        A padded lane count that fills whole packed tiles goes through K2 (or
-        K6), any other through K5; K3 sums the lanes."""
+        A padded lane count that fills whole packed tiles (on every shard)
+        goes through K2 (or K6), any other through K5; K3 sums the lanes."""
         padded = self._lane_granule(len(scalars))
         digits = self._bits_for(scalars, padded)
         rows = self._to_device_points(points, padded)
-        if self.use_quad and padded % (K.K_PACK * self.tile) == 0:
+        if self.use_quad and padded % (self._shards * K.K_PACK * self.tile) == 0:
             acc = self._packed_lanes(*self._group_lanes(rows, digits, padded))
         else:
-            acc = K.windowed_lanes(rows, digits)
+            acc = self._single_lane_sums(rows, digits)
         return K.sum_points(acc[None])
 
     def msm(self, scalars, points: list[RistrettoPoint]) -> RistrettoPoint:
@@ -886,7 +931,7 @@ class Accelerator:
         if self.use_quad:
             r = self._packed_lanes(*self._sig_slots(rows[:nk], rows[nk:], digits[:, :nk], digits[:, nk:]))
         else:
-            acc = K.windowed_lanes(rows, digits)
+            acc = self._single_lane_sums(rows, digits)
             r = self._pair_sums(acc[:nk], acc[nk:])
         r_bytes = K.compress(r).cpu().numpy()  # the one pull
         return [_challenge_matches(e, r_bytes[i]) for i, e in enumerate(entries)]

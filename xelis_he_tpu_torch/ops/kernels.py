@@ -1,4 +1,4 @@
-"""The eight CUDA kernels, with their wrappers, plain versions and launch
+"""The ten CUDA kernels, with their wrappers, plain versions and launch
 counts.
 
 =====  ========================  =============================================
@@ -13,6 +13,11 @@ counts.
  K7     daa_lanes.cu              _daa_kernel + msm_daa_lanes_pallas
  K8     add_compress.cu           no Pallas kernel: ECDLP's XLA curve.add and
                                   compress (xelis_he_tpu/ecdlp.py)
+ K9     bucket_sums.cu            no Pallas kernel: Pippenger's bucket sums,
+                                  the XLA scan of MsmEngine._window_sum
+                                  (xelis_he_tpu/ops/msm.py)
+ K10    window_sums.cu            no Pallas kernel: _window_sum's weighted
+                                  bucket sum and MsmEngine.msm's Horner loop
 =====  ========================  =============================================
 
 Each wrapper takes and returns torch tensors in the port's boundary formats:
@@ -54,7 +59,8 @@ N_BITS = 253  # ristretto scalars are below 2^253: the bits K7 walks
 N_WORDS = 8  # 32-bit words of a packed scalar
 
 launches = {"decompress": 0, "windowed_lanes_k8": 0, "tile_sums": 0, "compress": 0,
-            "windowed_lanes": 0, "windowed_lanes_k8_fe15": 0, "daa_lanes": 0, "add_compress": 0}
+            "windowed_lanes": 0, "windowed_lanes_k8_fe15": 0, "daa_lanes": 0, "add_compress": 0,
+            "bucket_sums": 0, "window_sums": 0}
 
 
 def reset_launches() -> None:
@@ -67,11 +73,18 @@ def reset_launches() -> None:
 # on the card; the counts are per encoding, slot, point addition (tile - 1
 # per tile), point, lane and sum.  K7's work depends on its scalars: the entry is
 # the 253 doublings of a lane, and every set bit adds DAA_MULS_PER_SET_BIT.
+# K9's and K10's items are point additions (``bucket_additions``,
+# ``window_sums_work``); K10's doublings add DBL_MULS / DBL_SQS each.
 FIELD_MULS = {"decompress": 28, "windowed_lanes_k8": 5336, "tile_sums": 9, "compress": 32,
-              "windowed_lanes": 1451, "windowed_lanes_k8_fe15": 5336, "daa_lanes": 1012, "add_compress": 41}
+              "windowed_lanes": 1451, "windowed_lanes_k8_fe15": 5336, "daa_lanes": 1012, "add_compress": 41,
+              "bucket_sums": 9, "window_sums": 9}
 FIELD_SQS = {"decompress": 256, "windowed_lanes_k8": 1152, "tile_sums": 0, "compress": 255,
-             "windowed_lanes": 1040, "windowed_lanes_k8_fe15": 1152, "daa_lanes": 1012, "add_compress": 255}
+             "windowed_lanes": 1040, "windowed_lanes_k8_fe15": 1152, "daa_lanes": 1012, "add_compress": 255,
+             "bucket_sums": 0, "window_sums": 0}
 DAA_MULS_PER_SET_BIT = 9
+DBL_MULS, DBL_SQS = 4, 4  # a doubling with T (ge_dbl)
+K9_LEVELS = 21  # partial sums a thread of K9 keeps (csrc/ed25519.cuh): runs of up to 2^20 lanes
+K10_THREADS = 256  # threads a window of K10, at most (csrc/ed25519.cuh)
 # 32-bit multiply-adds of one radix-2^25.5 field multiplication: 100
 # 32x32->64 products (two 32-bit halves each) and 10 multiplies by 19; of a
 # squaring: 55 products and the 5 multiplies by 19 of the wrapped limbs
@@ -131,15 +144,43 @@ def k1_executed() -> tuple[int, int]:
     return FIELD_MULS["decompress"] + K1_RECOMPUTED_MULS, FIELD_SQS["decompress"] + K1_RECOMPUTED_SQS
 
 
-def muladds(name: str, items: int, set_bits: int = 0) -> int:
+def bucket_additions(offsets: torch.Tensor) -> int:
+    """K9's work on (W, 2^c + 1) run offsets: a bucket of n >= 1 lanes takes
+    n - 1 additions (bucket 0, digit 0, is not summed)."""
+    counts = (offsets[:, 2:] - offsets[:, 1:-1]).to(torch.int64)
+    return int((counts - 1).clamp(min=0).sum())
+
+
+def window_sums_work(windows: int, c: int) -> tuple[int, int]:
+    """(additions, doublings) of K10's function: the running-sum method's
+    2 (2^c - 2) additions a window for sum_b b S_b, and Horner's c doublings
+    and one addition a window after the first."""
+    return windows * 2 * ((1 << c) - 2) + windows - 1, (windows - 1) * c
+
+
+def k10_executed(windows: int, c: int) -> tuple[int, int]:
+    """(additions, doublings) K10 executes: T chunks of m buckets a window
+    (2 (m - 2) additions each and one more for the chunk's bottom bucket
+    after chunk 0), the suffix scan and two trees over T slots, log2 m
+    doublings and one addition; then Horner."""
+    nb = 1 << c
+    T = min(K10_THREADS, nb // 2)
+    m = nb // T
+    scan = sum(T - s for s in (1 << i for i in range(T.bit_length() - 1)))
+    adds = T * 2 * (m - 2) + (T - 1) + scan + 2 * (T - 1) + 1
+    return windows * adds + windows - 1, windows * (m.bit_length() - 1) + (windows - 1) * c
+
+
+def muladds(name: str, items: int, set_bits: int = 0, doublings: int = 0) -> int:
     """32-bit multiply-adds of kernel ``name`` over ``items`` work items
-    (``set_bits``: the set bits among K7's scalars, bits 0-252)."""
+    (``set_bits``: the set bits among K7's scalars, bits 0-252;
+    ``doublings``: K10's)."""
     if name == "windowed_lanes_k8_fe15":
         per_mul, per_sq = MULADDS_PER_FIELD_MUL15, MULADDS_PER_FIELD_SQ15
     else:
         per_mul, per_sq = MULADDS_PER_FIELD_MUL, MULADDS_PER_FIELD_SQ
-    muls = items * FIELD_MULS[name] + set_bits * DAA_MULS_PER_SET_BIT
-    return muls * per_mul + items * FIELD_SQS[name] * per_sq
+    muls = items * FIELD_MULS[name] + set_bits * DAA_MULS_PER_SET_BIT + doublings * DBL_MULS
+    return muls * per_mul + (items * FIELD_SQS[name] + doublings * DBL_SQS) * per_sq
 
 
 @functools.lru_cache(maxsize=None)
@@ -345,6 +386,76 @@ def daa_lanes_plain(points: torch.Tensor, bits: torch.Tensor) -> torch.Tensor:
     return point_to_rows(acc, c.fe).to(torch.int32)
 
 
+def bucket_sums_plain(rows: torch.Tensor, order: torch.Tensor, offsets: torch.Tensor) -> torch.Tensor:
+    """K9's function in the JAX package's order: each window's lanes taken in
+    ``order``, a segment head wherever the digit changes, the segmented
+    Hillis-Steele scan (ops.msm._inclusive_scan), and each bucket's last
+    element; empty buckets hold the identity."""
+    from .msm import _inclusive_scan
+
+    c = _curve(rows.device)
+    W, nb = order.shape[0], offsets.shape[1] - 1
+    out = identity_rows(W * (nb - 1), rows.device).reshape(W, nb - 1, 4, NLIMBS)
+    pts = rows_to_point(rows)
+    digit = torch.arange(nb, device=rows.device)
+    for w in range(W):
+        off = offsets[w].to(torch.int64)
+        counts = off[1:] - off[:-1]
+        ds = torch.repeat_interleave(digit, counts)
+        if ds.numel() == 0:
+            continue
+        flags = ds != torch.cat([ds[:1] - 1, ds[:-1]])
+        lanes = order[w].to(torch.int64)
+        _, scanned = _inclusive_scan(c, flags, tuple(p[lanes] for p in pts))
+        b = torch.nonzero(counts[1:]).flatten() + 1  # the buckets that hold lanes
+        last = off[b + 1] - 1
+        out[w, b - 1] = point_to_rows(tuple(s[last] for s in scanned), c.fe).to(torch.int32)
+    return out
+
+
+def window_sums_plain(buckets: torch.Tensor) -> torch.Tensor:
+    """K10's function in its order: per window, T chunks of m buckets walked
+    from the top (suffix sums r, their sum acc), the suffix scan of the
+    chunks' totals, its tree with slot 0 the identity, log2 m doublings, the
+    tree of the acc and one addition; then Horner over the windows from the
+    top, c doublings and one addition each.  (W, 2^c - 1, 4, 18) -> (1, 4, 18)."""
+    cv = _curve(buckets.device)
+    W, nb = buckets.shape[0], buckets.shape[1] + 1
+    c = nb.bit_length() - 1
+    T = min(K10_THREADS, nb // 2)
+    m = nb // T
+    ident = cv.identity((W, 1))
+    # bucket b of chunk k = b // m at [:, k, b % m]; bucket 0 (the identity) is never read
+    full = tuple(torch.cat([i, s], dim=1).reshape(W, T, m, NLIMBS) for i, s in zip(ident, rows_to_point(buckets)))
+
+    def bucket(j):
+        return tuple(f[:, :, j] for f in full)
+
+    r = bucket(m - 1)
+    acc = r
+    for j in range(m - 2, 0, -1):
+        r = cv.add(r, bucket(j))
+        acc = cv.add(acc, r)
+    not_first = (torch.arange(T, device=buckets.device) > 0)[None, :].expand(W, T)
+    r = cv.select(not_first, cv.add(r, bucket(0)), r)
+    s = 1
+    while s < T:
+        head = cv.add(tuple(x[:, : T - s] for x in r), tuple(x[:, s:] for x in r))
+        r = tuple(torch.cat([h, x[:, T - s :]], dim=1) for h, x in zip(head, r))
+        s *= 2
+    r = tuple(torch.cat([i, x[:, 1:]], dim=1) for i, x in zip(ident, r))  # slot 0: the identity
+    x = _tree_reduce(cv, tuple(v.transpose(0, 1) for v in r), T)
+    for _ in range(m.bit_length() - 1):
+        x = cv.double(x)
+    wsum = cv.add(_tree_reduce(cv, tuple(v.transpose(0, 1) for v in acc), T), x)
+    total = tuple(v[W - 1] for v in wsum)
+    for w in range(W - 2, -1, -1):
+        for _ in range(c):
+            total = cv.double(total)
+        total = cv.add(total, tuple(v[w] for v in wsum))
+    return point_to_rows(total, cv.fe).to(torch.int32)[None]
+
+
 # ---------------------------------------------------------------------------
 # wrappers
 # ---------------------------------------------------------------------------
@@ -364,9 +475,13 @@ def _on_card(t: torch.Tensor) -> bool:
 
 
 def _launch(name: str, fn_name: str, *args) -> None:
-    stream = torch.cuda.current_stream().cuda_stream
+    """Launch on the device of the first tensor argument, on its current
+    stream (a mesh's shards may lie on different cards)."""
+    device = next(a.device for a in args if isinstance(a, torch.Tensor))
+    fn = kernel_fn(fn_name)
     ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
-    rc = kernel_fn(fn_name)(*ptrs, stream)
+    with torch.cuda.device(device):
+        rc = fn(*ptrs, torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {rc}")
     launches[name] += 1
@@ -542,6 +657,41 @@ def add_compress(a: torch.Tensor, b: torch.Tensor, sums_from: int | None = None)
         _launch("add_compress", "add_compress", a, b, enc, sums, a.shape[0], b.shape[0],
                 n if sums_from is None else sums_from, n)
     return enc, sums
+
+
+def bucket_sums(rows: torch.Tensor, order: torch.Tensor, offsets: torch.Tensor) -> torch.Tensor:
+    """K9: rows (N, 4, 18) int32, order (W, N) int32 (each window's lane
+    indices sorted by digit), offsets (W, 2^c + 1) int32 (bucket b of window
+    w is order[w][offsets[w][b] : offsets[w][b + 1]]) -> (W, 2^c - 1, 4, 18)
+    int32 canonical sums of buckets 1 .. 2^c - 1."""
+    n, W, nb = rows.shape[0], order.shape[0], offsets.shape[1] - 1
+    _expect(rows, torch.int32, (n, 4, NLIMBS), "lane points")
+    _expect(order, torch.int32, (W, n), "sorted lane order")
+    _expect(offsets, torch.int32, (W, nb + 1), "bucket offsets")
+    if nb < 2 or nb & (nb - 1) or nb > 1 << 24 or n > 1 << (K9_LEVELS - 1):
+        raise ValueError(f"{nb} buckets (a power of two, 2 to 2^24) over {n} lanes (at most 2^{K9_LEVELS - 1})")
+    if not _on_card(rows):
+        return bucket_sums_plain(rows, order, offsets)
+    out = torch.empty((W, nb - 1, 4, NLIMBS), dtype=torch.int32, device=rows.device)
+    if W:
+        _launch("bucket_sums", "bucket_sums", rows, order, offsets, out, W, n, nb.bit_length() - 1)
+    return out
+
+
+def window_sums(buckets: torch.Tensor) -> torch.Tensor:
+    """K10: (W, 2^c - 1, 4, 18) int32 bucket sums -> (1, 4, 18) int32
+    canonical rows of sum_w 2^(c w) sum_b b S_{w,b}."""
+    W, nb = buckets.shape[0], buckets.shape[1] + 1
+    _expect(buckets, torch.int32, (W, nb - 1, 4, NLIMBS), "bucket sums")
+    if nb < 2 or nb & (nb - 1) or nb > 1 << 24 or W < 1:
+        raise ValueError(f"{W} windows of {nb - 1} buckets: want at least one window of 2^c - 1, c in 1..24")
+    if not _on_card(buckets):
+        return window_sums_plain(buckets)
+    out = torch.empty((1, 4, NLIMBS), dtype=torch.int32, device=buckets.device)
+    sums = torch.empty((W, GE_WORDS), dtype=torch.int32, device=buckets.device)
+    counter = torch.zeros((1,), dtype=torch.int32, device=buckets.device)
+    _launch("window_sums", "window_sums", buckets, sums, counter, out, W, nb.bit_length() - 1)
+    return out
 
 
 def identity_rows(n: int, device) -> torch.Tensor:
