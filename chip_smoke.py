@@ -1223,9 +1223,9 @@ def mesh_path(rng: random.Random, txs, ledger, accel, want_balances, default_k2:
             if got.compress() != want.compress():
                 raise AssertionError(f"{what} at {n} lanes disagrees with accel.msm")
             shards = [c[0].shape[0] for c in recs["daa_lanes"].calls]
-            if n == sizes[1]:  # each K7 launch of a shard held to its plain version
-                errs["daa_lanes"] += [expect_equal(f"K7, a shard of {what}", K.daa_lanes(*c),
-                                                   K.daa_lanes_plain(*c)) for c in recs["daa_lanes"].calls]
+            # each K7 launch of a shard held to its plain version, at every size
+            errs["daa_lanes"] += [expect_equal(f"K7, a shard of {what}, {n} lanes", K.daa_lanes(*c),
+                                               K.daa_lanes_plain(*c)) for c in recs["daa_lanes"].calls]
             ms = host_ms(lambda: engine.msm_points(scal[:n], pts[:n]))
             log(f"  {what}, {n} lanes: equal to accel.msm{' and pyref' if n == 64 else ''}; K7 shards {shards}; "
                 f"{ms:.1f} ms a call (host clock)")
@@ -1235,6 +1235,8 @@ def mesh_path(rng: random.Random, txs, ledger, accel, want_balances, default_k2:
                 half = recs["daa_lanes"].calls[0]
                 both = tuple(torch.cat([a, b], dim=-1 if a.dim() == 2 else 0).contiguous()
                              for a, b in zip(half, recs["daa_lanes"].calls[1]))
+                errs["daa_lanes"].append(expect_equal(f"K7 on both shards' {both[0].shape[0]} lanes",
+                                                      K.daa_lanes(*both), K.daa_lanes_plain(*both)))
                 k7 = {"shard_lanes": shards[0], "shard_ms": device_ms(lambda: K.daa_lanes(*half), "daa_lanes_kernel"),
                       "whole_lanes": both[0].shape[0], "whole_ms": device_ms(lambda: K.daa_lanes(*both),
                                                                             "daa_lanes_kernel")}
@@ -1327,6 +1329,10 @@ def dcn_path(txs, ledger) -> dict:
             log(f"  two processes, {'fee tampered on rank 1' if tamper else 'valid block'}: {json.dumps(runs)}")
             if [r["verdict"] for r in runs] != [want, want]:
                 raise AssertionError(f"multi-process verify: {[r['verdict'] for r in runs]}, want {want} twice")
+            # a worker that crashed rejects too: the tampered fee must be what rejected rank 1, and only it
+            errors = [r["error"] and r["error"]["class"] for r in runs]
+            if errors != [None, "ProofVerificationError" if tamper else None]:
+                raise AssertionError(f"multi-process verify: the shares' errors are {errors}")
             out["tampered" if tamper else "valid"] = runs
     return out
 

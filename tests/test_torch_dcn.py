@@ -5,6 +5,7 @@ integer all-reduce decides the block, so both must print the same verdict.
 The block is built with the JAX package and carried across as wire bytes
 and a ledger snapshot."""
 
+import json
 import os
 import pickle
 import socket
@@ -44,7 +45,8 @@ def _build_block(n_txs: int):
     return txs, ledger
 
 
-def _run_workers(block_path: str) -> list[str]:
+def _run_workers(block_path: str) -> list[tuple[str, dict | None]]:
+    """(verdict, the error that rejected the worker's own share) of each rank."""
     coord = f"127.0.0.1:{_free_port()}"
     env = dict(os.environ, OMP_NUM_THREADS="1")
     procs = [
@@ -55,12 +57,13 @@ def _run_workers(block_path: str) -> list[str]:
         )
         for i in range(2)
     ]
-    verdicts = []
+    results = []
     for p in procs:
         out, err = p.communicate(timeout=600)
         assert p.returncode == 0, f"worker failed: {err[-2000:]}"
-        verdicts.append(out.strip().splitlines()[-1])
-    return verdicts
+        lines = out.strip().splitlines()
+        results.append((lines[-1], json.loads(lines[-2])["error"]))
+    return results
 
 
 @pytest.mark.parametrize("tamper", [False, True])
@@ -72,4 +75,31 @@ def test_two_process_block_verification(tmp_path, tamper):
     path = tmp_path / "block.pkl"
     path.write_bytes(pickle.dumps({"txs": [encode_transaction(tx) for tx in txs], "ledger": snapshot(ledger)}))
     expected = "REJECT" if tamper else "ACCEPT"
-    assert _run_workers(str(path)) == [expected, expected]
+    (verdict0, err0), (verdict1, err1) = _run_workers(str(path))
+    assert [verdict0, verdict1] == [expected, expected]
+    # a worker that crashed would reject as well: only rank 1's share holds the tampered fee
+    assert err0 is None
+    if tamper:
+        assert err1 is not None and err1["class"] == "ProofVerificationError", err1
+    else:
+        assert err1 is None
+
+
+def test_verify_batch_distributed_rejects_a_share_that_raises():
+    """One gloo process: an empty share is accepted, and a share whose
+    verification raises is rejected (the JAX package's semantics)."""
+    import torch.distributed as dist
+
+    from xelis_he_tpu_torch.mock import Ledger as TorchLedger
+    from xelis_he_tpu_torch.ops.accel import Accelerator
+    from xelis_he_tpu_torch.parallel.dcn import init_process, verify_batch_distributed, verify_share
+
+    accel = Accelerator(device="cpu", tile=8, qtile=8)
+    init_process(f"127.0.0.1:{_free_port()}", 1, 0)
+    try:
+        assert dist.get_backend() == "gloo"
+        assert verify_batch_distributed([], TorchLedger(), accel=accel)
+        assert not verify_batch_distributed([object()], TorchLedger(), accel=accel)
+        assert isinstance(verify_share([object()], TorchLedger(), accel=accel), Exception)
+    finally:
+        dist.destroy_process_group()

@@ -17,7 +17,8 @@ those modules keep of the JAX package's (ecdlp.py's arguments, the table's
 files and lookups and the host walk of ``decode``; ops/msm.py's scalar
 decompositions and window constants; the mesh axis, ``shard_round_robin``,
 the parallel package's exports and ``kernel_report``) is copied, and each of
-those definitions is held to the JAX package's (``COPIED_DEFS``)."""
+those definitions is held to the JAX package's (``COPIED_DEFS``); the JAX-only
+helpers of ``OMITTED`` are not carried at all."""
 
 import ast
 import pathlib
@@ -67,6 +68,12 @@ REBUILT = {
     "utils/profiling.py": {"trace", "annotate"},
 }
 
+# JAX-only helpers of a PORTED module that the port leaves out: no copy of
+# theirs is in the port, and each still names a definition on the JAX side
+OMITTED = {
+    "ops/msm.py": {"decompose_bits_xp"},  # the jit-traceable bit split of the fused-verification jits
+}
+
 SOURCES = sorted(p.relative_to(REPO).as_posix() for p in PORT.rglob("*.py")) + ["chip_smoke.py"]
 COPIES = sorted(
     p.relative_to(PORT).as_posix()
@@ -112,7 +119,8 @@ def _definitions(path: pathlib.Path) -> dict[str, str]:
 
 
 COPIED_DEFS = sorted(
-    (rel, name) for rel, rebuilt in REBUILT.items() for name in _definitions(JAX_PKG / rel) if name not in rebuilt
+    (rel, name) for rel, rebuilt in REBUILT.items() for name in _definitions(JAX_PKG / rel)
+    if name not in rebuilt | OMITTED.get(rel, set())
 )
 
 
@@ -155,6 +163,14 @@ def test_rebuilt_definitions_exist_in_both_packages():
     for rel, rebuilt in REBUILT.items():
         assert rel in PORTED
         assert rebuilt <= set(_definitions(JAX_PKG / rel)) and rebuilt <= set(_definitions(PORT / rel))
+
+
+@pytest.mark.parametrize("rel,name", sorted((r, n) for r, names in OMITTED.items() for n in names))
+def test_omitted_definitions_are_jax_only(rel, name):
+    """What ``OMITTED`` leaves out of the drift check is a definition of the
+    JAX package's module that the port does not carry."""
+    assert rel in PORTED
+    assert name in _definitions(JAX_PKG / rel) and name not in _definitions(PORT / rel)
 
 
 def test_copy_covers_the_host_layer():

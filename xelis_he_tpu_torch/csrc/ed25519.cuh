@@ -1136,21 +1136,23 @@ static XHE_HD void daa_write(int32_t *out, const ge &acc, int r) {
 // its operands on the same sides: the plain version's scan and the kernel
 // give the same rows.
 
-constexpr int K9_LEVELS = 21;  // partial sums a thread keeps: runs up to 2^20 lanes
+// partial sums a thread keeps: runs of any int32 length (up to 2^31 - 1
+// lanes, 2^31 positions); a thread touches only the levels its run needs
+constexpr int K9_LEVELS = 32;
 
 // the sum of rows[order[lo]], ..., rows[order[hi - 1]] (hi > lo) as the
 // scan's last element of the run; ``stack`` holds K9_LEVELS points
 static XHE_HD void bucket_sum_one(ge &out, ge *stack, const int32_t *rows, const int32_t *order, int lo,
                                   int hi) {
-  const int len = hi - lo;
+  const unsigned len = (unsigned)(hi - lo);
   int levels = 0;
-  while ((1 << levels) < len) ++levels;
-  const int pad = (1 << levels) - len;  // the empty positions before the head
-  unsigned present = 0;                 // bit l: stack[l] holds a left sibling
+  while ((1u << levels) < len) ++levels;
+  const unsigned pad = (1u << levels) - len;  // the empty positions before the head
+  unsigned present = 0;                       // bit l: stack[l] holds a left sibling
   ge node;
 #pragma unroll 1
-  for (int j = 0; j < len; ++j) {
-    const int pos = pad + j;
+  for (unsigned j = 0; j < len; ++j) {
+    const unsigned pos = pad + j;
     ge_from_rows(node, rows + 72 * (size_t)order[lo + j]);
     int l = 0;
 #pragma unroll 1

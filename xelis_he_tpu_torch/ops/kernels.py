@@ -83,7 +83,7 @@ FIELD_SQS = {"decompress": 256, "windowed_lanes_k8": 1152, "tile_sums": 0, "comp
              "bucket_sums": 0, "window_sums": 0}
 DAA_MULS_PER_SET_BIT = 9
 DBL_MULS, DBL_SQS = 4, 4  # a doubling with T (ge_dbl)
-K9_LEVELS = 21  # partial sums a thread of K9 keeps (csrc/ed25519.cuh): runs of up to 2^20 lanes
+K9_LEVELS = 32  # partial sums a thread of K9 keeps (csrc/ed25519.cuh): runs of any int32 length
 K10_THREADS = 256  # threads a window of K10, at most (csrc/ed25519.cuh)
 # 32-bit multiply-adds of one radix-2^25.5 field multiplication: 100
 # 32x32->64 products (two 32-bit halves each) and 10 multiplies by 19; of a
@@ -668,10 +668,12 @@ def bucket_sums(rows: torch.Tensor, order: torch.Tensor, offsets: torch.Tensor) 
     _expect(rows, torch.int32, (n, 4, NLIMBS), "lane points")
     _expect(order, torch.int32, (W, n), "sorted lane order")
     _expect(offsets, torch.int32, (W, nb + 1), "bucket offsets")
-    if nb < 2 or nb & (nb - 1) or nb > 1 << 24 or n > 1 << (K9_LEVELS - 1):
-        raise ValueError(f"{nb} buckets (a power of two, 2 to 2^24) over {n} lanes (at most 2^{K9_LEVELS - 1})")
+    if nb < 2 or nb & (nb - 1) or nb > 1 << 24:
+        raise ValueError(f"{nb} buckets: want a power of two, 2 to 2^24")
     if not _on_card(rows):
         return bucket_sums_plain(rows, order, offsets)
+    if n >= 1 << (K9_LEVELS - 1):  # the kernel's lane indices and run offsets are int32
+        raise ValueError(f"{n} lanes: K9 takes fewer than 2^{K9_LEVELS - 1}")
     out = torch.empty((W, nb - 1, 4, NLIMBS), dtype=torch.int32, device=rows.device)
     if W:
         _launch("bucket_sums", "bucket_sums", rows, order, offsets, out, W, n, nb.bit_length() - 1)

@@ -46,20 +46,6 @@ def decompose_bits(scalars, n_bits: int = 253) -> _np.ndarray:
     return _np.ascontiguousarray(bits[:, :n_bits].T).astype(_np.uint32)
 
 
-def decompose_bits_xp(scal, xp, n_bits: int = 253):
-    """Device-traceable decompose_bits: (N, 32) uint8 canonical scalars ->
-    (n_bits, N) uint32 bit rows, LSB first.
-
-    Used inside the fused-verification jits so only the raw 32-byte scalars
-    ride the host->device link (32x less upload than the bit tensor) and the
-    lane axis stays axis 0 of the transferred payload — which is what mesh
-    sharding partitions (lane-major on both the jnp and Pallas paths)."""
-    shifts = xp.arange(8, dtype=xp.uint32)
-    b = (scal[:, :, None].astype(xp.uint32) >> shifts[None, None, :]) & xp.uint32(1)
-    bits = b.reshape(scal.shape[0], 256)[:, :n_bits]
-    return xp.transpose(bits, (1, 0))
-
-
 def decompose_digits(scalars: list[int], c: int = DEFAULT_WINDOW) -> _np.ndarray:
     """(W, N) int32 unsigned c-bit digits, least-significant window first."""
     n_windows = (SCALAR_BITS + c - 1) // c

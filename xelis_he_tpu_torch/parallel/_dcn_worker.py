@@ -7,8 +7,10 @@ BLOCK is a pickle of {"txs": [wire bytes], "ledger": carry.ledger_snapshot}.
 The process joins the process group at COORDINATOR (host:port), loads its
 own replica of the ledger, verifies its round-robin share of the block on an
 Accelerator (the CUDA device unless --device cpu) and takes part in the
-all-reduce that decides the block.  It prints one JSON line with its rank,
-share and verify time, then ACCEPT or REJECT, the same on every process.
+all-reduce that decides the block (``verify_batch_distributed`` in two
+steps, so that the local outcome can be told).  It prints one JSON line with
+its rank, share, verify time and the error that rejected its share (class
+name and message, or null), then ACCEPT or REJECT, the same on every process.
 """
 
 from __future__ import annotations
@@ -34,7 +36,7 @@ def main(argv=None) -> None:
 
     from ..carry import ledger_from_snapshot, txs_from_wire
     from ..ops.accel import Accelerator
-    from .dcn import init_process, shard_round_robin, verify_batch_distributed
+    from .dcn import all_reduce_accept, init_process, shard_round_robin, verify_share
 
     init_process(args.coordinator, args.num_processes, args.process_id)
     with open(args.block, "rb") as f:
@@ -44,10 +46,12 @@ def main(argv=None) -> None:
     sizes = {k: v for k, v in (("tile", args.tile), ("qtile", args.qtile)) if v is not None}
     accel = Accelerator(device=args.device, **sizes)
     t0 = time.perf_counter()
-    ok = verify_batch_distributed(txs, state, accel=accel)
+    err = verify_share(txs, state, accel=accel)
+    ok = all_reduce_accept(err is None)
     seconds = time.perf_counter() - t0
     share = len(shard_round_robin(txs, args.process_id, args.num_processes))
-    print(json.dumps({"rank": args.process_id, "txs": share, "verify_s": seconds}), flush=True)
+    error = None if err is None else {"class": type(err).__name__, "message": str(err)}
+    print(json.dumps({"rank": args.process_id, "txs": share, "verify_s": seconds, "error": error}), flush=True)
     print("ACCEPT" if ok else "REJECT", flush=True)
     dist.destroy_process_group()
 

@@ -74,6 +74,32 @@ def all_reduce_accept(local_ok: bool) -> bool:
     return int(flag.item()) == dist.get_world_size()
 
 
+def verify_share(
+    txs: list,
+    state,
+    accel=None,
+    process_index: int | None = None,
+    num_processes: int | None = None,
+) -> Exception | None:
+    """Verify this process's round-robin share of ``txs`` against
+    ``state``, its replica; the exception that rejected the share, or None.
+    Rank and world size default to torch.distributed's."""
+    import torch.distributed as dist
+
+    if process_index is None:
+        process_index = dist.get_rank()
+    if num_processes is None:
+        num_processes = dist.get_world_size()
+
+    local = shard_round_robin(txs, process_index, num_processes)
+    if local:
+        try:
+            verify_batch(local, state, accel=accel)
+        except Exception as exc:
+            return exc
+    return None
+
+
 def verify_batch_distributed(
     txs: list,
     state,
@@ -84,20 +110,6 @@ def verify_batch_distributed(
     """Verify ``txs`` sharded across processes; True iff EVERY shard
     verified.  ``state`` is this process's replica (mutated by its own
     shard only, the reference's clone-per-worker semantics).  A shard whose
-    verification raises counts as rejected, as in the JAX package; rank and
-    world size default to torch.distributed's."""
-    import torch.distributed as dist
-
-    if process_index is None:
-        process_index = dist.get_rank()
-    if num_processes is None:
-        num_processes = dist.get_world_size()
-
-    local = shard_round_robin(txs, process_index, num_processes)
-    ok = True
-    if local:
-        try:
-            verify_batch(local, state, accel=accel)
-        except Exception:
-            ok = False
-    return all_reduce_accept(ok)
+    verification raises counts as rejected, as in the JAX package
+    (``verify_share`` returns what it raised)."""
+    return all_reduce_accept(verify_share(txs, state, accel, process_index, num_processes) is None)
