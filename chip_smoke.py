@@ -7,8 +7,9 @@
 Phases, each of which fails the run loudly:
 
 1. card: the CUDA device's name, power limit and maximum SM clock;
-2. build: nvcc compiles the ten kernels of xelis_he_tpu_torch/csrc (K1-K10),
-   one process each, side by side;
+2. build: nvcc compiles the fourteen kernels of xelis_he_tpu_torch/csrc
+   (K1-K14), one process each, side by side; the SASS loop of K11's two
+   forms shows which instruction a wide multiply-add is (cuobjdump);
 3. kernels vs plain: each kernel's wrapper on the card against its plain
    PyTorch version on the card, on edge cases (bit-exact: every output is
    canonical), against host references (pyref), and K6 against K2 (by
@@ -67,14 +68,25 @@ Phases, each of which fails the run loudly:
     K10) equal to ``accel.msm`` by encoding and to pyref at 64 points, K9
     on a window whose lanes all share one digit, each launch held to its
     plain version, the call's time beside ``accel.msm``'s;
+11d. roofline probes: the probe scripts (python -m xelis_he_tpu_torch.scripts.
+    bench_roofline, bench_fe13, bench_qtile) at 16,384, 131,072 and
+    1,048,576 lanes and launches of ~2 ms: K11's u32 and wide multiply-add
+    rates, K12 (_mul_t at three block widths), K13 (_mul13 and its two
+    carry variants) and K14 (the port's fe_mul/fe_sq on both tiers), every
+    launch held to its plain version bit for bit (every lane at 4 reps, a
+    sample of lanes at the timed reps, K14's sample also by value against
+    Python's pow), and K5, K2 and K6 at the scripts' shapes against the
+    rates K14 predicts;
 12. kernel times: each kernel on the inputs of its largest launch on its
     path, as device time (torch.profiler's records of it over 5 calls) and
     as the time of a call in a run of 10 back to back (CUDA events: for a
     small kernel that is mostly the host's launch cost), beside its plain
     version's time (CUDA events around one call, median of 3) and the card's
-    bound; K3 also at every other shape the path launches it at (the group
-    sums of ``sum_points`` among them), with phase 10's launches beside
-    them; each kernel's mismatch count covers phase 10's launches too;
+    bound, with the bound at K11's measured multiply-add rate beside it
+    (K11-K14: their rows at 16,384 lanes from phase 11d); K3 also at every
+    other shape the path launches it at (the group sums of ``sum_points``
+    among them), with phase 10's launches beside them; each kernel's
+    mismatch count covers phase 10's launches too;
 13. trace: one more default verify under utils.profiling.trace
     (torch.profiler, CPU and CUDA activity), whose CUDA events give the
     device's busy time and idle share during a verify.
@@ -143,7 +155,27 @@ KERNELS = {
                     "bucket_sums_kernel"),
     "window_sums": ("xelis_he_tpu_torch/csrc/window_sums.cu", "xelis_he_tpu/ops/msm.py:195",
                     "window_sums_kernel"),
+    # the roofline probes of scripts/ (phase 11d)
+    "probe_imad": ("xelis_he_tpu_torch/csrc/probe_imad.cu", "scripts/bench_roofline.py:57", "probe_imad_kernel"),
+    "probe_mul15": ("xelis_he_tpu_torch/csrc/probe_mul15.cu", "scripts/bench_roofline.py:57",
+                    "probe_mul15_kernel"),
+    "probe_mul13": ("xelis_he_tpu_torch/csrc/probe_mul13.cu", "scripts/bench_roofline.py:135",
+                    "probe_mul13_kernel"),
+    # no Pallas kernel: the port's own field multiplication in the place of
+    # the probes' production one (_mul13, bench_roofline.py:135)
+    "probe_fe": ("xelis_he_tpu_torch/csrc/probe_fe.cu", "scripts/bench_roofline.py:135", "probe_fe_kernel"),
 }
+PROBE_KERNELS = ("probe_imad", "probe_mul15", "probe_mul13", "probe_fe")
+# each probe's row in the kernels line: the sweep (ops/probes.py mode) it reports
+PROBE_ROWS = {"probe_imad": "imad", "probe_mul15": "mul15_b256", "probe_mul13": "mul13_3pass", "probe_fe": "fe_mul"}
+# the probe phase's lane counts (the scripts sweep 1,024 to 1,048,576) and launch time
+PROBE_LANES = (16_384, 131_072, 1_048_576)
+PROBE_TARGET_MS = 2.0
+# the SASS whose loop mix the build phase prints: K11's two forms (IMAD or
+# IMAD.WIDE), and one instantiation each of K12, K13 and K14
+PROBE_SASS = {"probe_imad": ("probe_imad_kernel", "probe_imad_wide_kernel"),
+              "probe_mul15": ("probe_mul15_kernelILi256E",), "probe_mul13": ("probe_mul13_kernelILi0E",),
+              "probe_fe": ("probe_fe_kernelIN3xhe2feELb0E", "probe_fe_kernelIN3xhe4fe15ELb0E")}
 # the library (csrc/<name>.cu, ops/_build.py) each kernel is built into
 LIBS = {name: pathlib.Path(src).stem for name, (src, _, _) in KERNELS.items()}
 # kernels whose ptxas figures the build phase and --kernels-from print
@@ -156,7 +188,14 @@ FUSED_PATH = ("decompress", "windowed_lanes", "tile_sums", "compress")
 EDGE_SCALARS = [0, 1, L - 1, L - 1, (1 << 253) - 1, 2, L - 2, 1 << 128]  # tests/test_fe13.py's
 
 
+T0 = time.perf_counter()
+
+
 def log(*args) -> None:
+    """Print a log line; a phase's heading (a line not indented) with the
+    seconds since the start."""
+    if args and isinstance(args[0], str) and not args[0].startswith(" "):
+        args = (f"[{time.perf_counter() - T0:.0f} s] {args[0]}", *args[1:])
     print(*args, flush=True)
 
 
@@ -1431,6 +1470,63 @@ def trace_verify(txs, ledger, accel) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 11d: the roofline probes
+# ---------------------------------------------------------------------------
+
+
+def roofline_probes(args, clock_hz, sass) -> tuple[list[dict], float]:
+    """Phase 11d: the three probe scripts (xelis_he_tpu_torch/scripts/
+    bench_roofline, bench_fe13, bench_qtile) at PROBE_LANES and launches of
+    PROBE_TARGET_MS, every sweep holding every launch to its plain version
+    (every lane at 4 reps; a sample at the timed reps, K14's also by value);
+    the scripts' lines and sweeps go to chiprun_out/probes.json.  Returns
+    (K11-K14's rows of the kernels line, K11's measured multiply-adds a
+    second)."""
+    import torch
+
+    from xelis_he_tpu_torch.ops import kernels as K
+    from xelis_he_tpu_torch.scripts import _probe as B
+    from xelis_he_tpu_torch.scripts import bench_fe13, bench_qtile, bench_roofline
+
+    device = torch.device("cuda")
+    ns = argparse.Namespace(device=device, lanes=PROBE_LANES, target_ms=PROBE_TARGET_MS, seed=args.seed,
+                            no_check=False, end_lanes=262_144, end_slots=B.REF_LANES)
+    cache = {}
+    K.reset_launches()
+    lines = [ln for mod in (bench_roofline, bench_fe13, bench_qtile) for ln in mod.run(ns, cache, log=log)]
+    (OUT / "probes.json").write_text(json.dumps({"lines": lines, "sweeps": cache}, indent=1))
+    launches = {k: K.launches[k] for k in PROBE_KERNELS}
+    expect_launched("roofline probes", launches, PROBE_KERNELS)
+    peak = cache["imad"]["peak"]["muladds_per_s"]
+    rows = []
+    for name in PROBE_KERNELS:
+        m = cache[PROBE_ROWS[name]]
+        r, probe = m["ref"], B.PROBES[m["label"]]
+        x, y = B.inputs(probe, r["lanes"], args.seed, device)
+        plain_ms = time_ms(lambda: probe.plain(x, y, r["reps"]), reps=1)
+        muladds = probe.muladds * r["lanes"] * r["reps"]
+        nbytes = probe.rows * r["lanes"] * 4 * (2 + (4 if name == "probe_fe" else 1))
+        ops_ms, bytes_ms = muladds / (INT32_LANES * clock_hz) * 1e3, nbytes / MEM_BYTES_PER_S * 1e3
+        bound_ms, peak_ms = max(ops_ms, bytes_ms), max(muladds / peak * 1e3, bytes_ms)
+        source, replaces, _ = KERNELS[name]
+        keep = ("lanes", "reps", "ms", "muladds_per_s", "ops_per_s")
+        variants = [{"mode": v["label"], "at_16384": {k: v["ref"][k] for k in keep},
+                     "peak": {k: v["peak"][k] for k in keep}, "plateau_lanes": v["plateau"]["lanes"]}
+                    for v in cache.values() if v["probe"] == name]
+        row = {"name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": launches[name],
+               "max_abs_err": 0, "max_mismatch": 0, "shape": f"{m['label']}, {r['lanes']} lanes, {r['reps']} reps",
+               "ms": r["ms"], "plain_ms": plain_ms, "bound_ms": bound_ms,
+               "bound_by": "operations" if ops_ms >= bytes_ms else "bytes", "library_ms": None,
+               "share_of_bound": bound_ms / r["ms"], "bound_ms_measured_peak": peak_ms,
+               "share_of_measured_peak": peak_ms / r["ms"], "variants": variants,
+               "sass_loop_mix": sass.get(name, {})}
+        log(f"  {name} at {row['shape']}: {r['ms']:.4f} ms (plain {plain_ms:.1f} ms, bound {bound_ms:.5f} ms, "
+            f"{100 * row['share_of_bound']:.1f}%; at the measured peak {100 * row['share_of_measured_peak']:.1f}%)")
+        rows.append(row)
+    return rows, peak
+
+
+# ---------------------------------------------------------------------------
 # phase 6: kernel times at the main path's shapes
 # ---------------------------------------------------------------------------
 
@@ -1444,11 +1540,21 @@ def set_bits_253(words) -> int:
     return int(sum(((w >> k) & 1).sum() for k in range(32)))
 
 
-def bound(name, args, clock_hz) -> tuple[str, float, str]:
+def bound(name, args, clock_hz, peak=None) -> tuple[str, float, str]:
     """(shape, bound ms, what bounds it) of kernel ``name`` on ``args``: the
     function's 32-bit multiply-adds over the card's INT32 lanes at the max
-    SM clock, or its bytes (each input read once, each output written once)
+    SM clock (or over ``peak`` multiply-adds a second, K11's measured
+    rate), or its bytes (each input read once, each output written once)
     over the memory rate, whichever is larger."""
+    shape, muladds, nbytes = work(name, args)
+    ops_ms = muladds / (peak or INT32_LANES * clock_hz) * 1e3
+    bytes_ms = nbytes / MEM_BYTES_PER_S * 1e3
+    return shape, max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms else "bytes"
+
+
+def work(name, args) -> tuple[str, int, int]:
+    """(shape, 32-bit multiply-adds, bytes) of kernel ``name``'s function on
+    ``args``."""
     from xelis_he_tpu_torch.ops import kernels as K
 
     set_bits = doublings = 0
@@ -1489,9 +1595,7 @@ def bound(name, args, clock_hz) -> tuple[str, float, str]:
     else:
         n = args[0].shape[0]
         items, nbytes, shape = n, n * (288 + 32), f"{n} points"
-    ops_ms = K.muladds(name, items, set_bits, doublings) / (INT32_LANES * clock_hz) * 1e3
-    bytes_ms = nbytes / MEM_BYTES_PER_S * 1e3
-    return shape, max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms else "bytes"
+    return shape, K.muladds(name, items, set_bits, doublings), nbytes
 
 
 def k3_shapes(recorder, clock_hz) -> list[dict]:
@@ -1513,13 +1617,17 @@ def k3_shapes(recorder, clock_hz) -> list[dict]:
     return rows
 
 
-def kernel_line(recorders, launches, errs, clock_hz):
+def kernel_line(recorders, launches, errs, clock_hz, peak):
+    """Each path kernel's row of the kernels line, its bound beside the
+    bound at ``peak`` multiply-adds a second (K11's measured rate)."""
     import torch
 
     from xelis_he_tpu_torch.ops import kernels as K
 
     rows = []
     for name in KERNELS:
+        if name in PROBE_KERNELS:
+            continue
         args = recorders[name].args
         kernel, plain = getattr(K, name), getattr(K, name + "_plain")
         out_k, out_p = kernel(*args), plain(*args)
@@ -1532,12 +1640,14 @@ def kernel_line(recorders, launches, errs, clock_hz):
         ms, one_call_ms = device_ms(lambda: kernel(*args), KERNELS[name][2]), call_ms(lambda: kernel(*args))
         plain_ms = time_ms(lambda: plain(*args), reps=3)  # seconds each at these shapes
         shape, bound_ms, bound_by = bound(name, args, clock_hz)
+        peak_ms = bound(name, args, clock_hz, peak)[1]
         source, replaces, _ = KERNELS[name]
         rows.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[name], "max_abs_err": err, "max_mismatch": n_bad,
             "shape": shape, "ms": ms, "call_ms": one_call_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None,
+            "bound_by": bound_by, "library_ms": None, "share_of_bound": bound_ms / ms,
+            "bound_ms_measured_peak": peak_ms, "share_of_measured_peak": peak_ms / ms,
         })
         log(f"  {name} at {shape}: {ms:.4f} ms on the device, {one_call_ms:.4f} ms a call "
             f"(plain {plain_ms:.1f} ms, bound {bound_ms:.5f} ms)")
@@ -1579,12 +1689,10 @@ def resident_blocks(regs: int, threads: int, smem: int = 0) -> int:
 SASS_CLASSES = ("IMAD.WIDE", "IMAD", "IADD3", "SHF", "LOP3")
 
 
-def sass_loop_mix(lib: pathlib.Path, kernel: str) -> dict:
-    """Instruction count by class of one fe_sq of kernel ``kernel`` in the
-    built library ``lib``: fe_sqn's loops (``#pragma unroll 1``) each hold one
-    squaring and the loop's own test, so the body that occurs most often
-    among the innermost loops of the kernel's SASS (cuobjdump) is one fe_sq."""
-    import collections
+def sass_function(lib: pathlib.Path, kernel: str) -> str:
+    """The SASS (cuobjdump) of the CUDA function whose name contains
+    ``kernel`` in the built library ``lib``, with the device functions it
+    calls."""
     import shutil
 
     tool = shutil.which("cuobjdump") or os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
@@ -1595,6 +1703,36 @@ def sass_loop_mix(lib: pathlib.Path, kernel: str) -> dict:
     body = next((f for f in funcs[1:] if kernel in f.split("\n", 1)[0]), None)
     if body is None:
         raise RuntimeError(f"cuobjdump shows no function {kernel} in {lib}")
+    return body
+
+
+def sass_class_mix(ops) -> dict:
+    mix = {c: 0 for c in SASS_CLASSES}
+    for op in ops:
+        cls = next((c for c in SASS_CLASSES if op.startswith(c)), "other")
+        mix[cls] = mix.get(cls, 0) + 1
+    mix["total"] = len(ops)
+    return mix
+
+
+def sass_function_mix(lib: pathlib.Path, kernel: str) -> dict:
+    """Instruction count by class of the whole of ``kernel``'s SASS (its
+    callees included): K14's fe15 loop only calls fe_mul."""
+    body = sass_function(lib, kernel)
+    return sass_class_mix([m.group(1).split()[0] for m in
+                           (re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?(.*?)\s*;", ln)
+                            for ln in body.splitlines()) if m])
+
+
+def sass_loop_mix(lib: pathlib.Path, kernel: str) -> dict:
+    """Instruction count by class of one fe_sq of kernel ``kernel`` in the
+    built library ``lib``: fe_sqn's loops (``#pragma unroll 1``) each hold one
+    squaring and the loop's own test, so the body that occurs most often
+    among the innermost loops of the kernel's SASS (cuobjdump) is one fe_sq.
+    (The probes' kernels have one loop, a rep.)"""
+    import collections
+
+    body = sass_function(lib, kernel)
     insns, labels, pending = [], {}, []
     for line in body.splitlines():
         m = re.match(r"\s*(\.L_x_\d+):", line)
@@ -1621,12 +1759,7 @@ def sass_loop_mix(lib: pathlib.Path, kernel: str) -> dict:
         raise RuntimeError(f"no loop in the SASS of {kernel}")
     bodies = [[ins.split()[0] for addr, ins in insns if a <= addr <= b] for a, b in inner]
     length = collections.Counter(len(x) for x in bodies).most_common(1)[0][0]
-    ops = next(x for x in bodies if len(x) == length)
-    mix = {c: 0 for c in SASS_CLASSES}
-    for op in ops:
-        cls = next((c for c in SASS_CLASSES if op.startswith(c)), "other")
-        mix[cls] = mix.get(cls, 0) + 1
-    mix["total"] = len(ops)
+    mix = sass_class_mix(next(x for x in bodies if len(x) == length))
     mix["loops_alike"] = sum(len(x) == length for x in bodies)
     return mix
 
@@ -1749,7 +1882,7 @@ def main() -> int:
 
     from xelis_he_tpu_torch.ops import kernels as K
 
-    _build.build_all()
+    lib_dir = _build.build_all()
     log(f"build: {_build.build_seconds:.1f} s")
     (OUT / "ptxas.txt").write_text("\n".join(f"== {k}\n{v}" for k, v in _build.ptxas_log.items()))
     for k, v in _build.ptxas_log.items():
@@ -1769,6 +1902,17 @@ def main() -> int:
         if name in ("decompress", "compress") and (info["spill_stores"] or info["spill_loads"]):
             raise AssertionError(f"{name}: ptxas spills registers")
         builds[name] = info
+    # which instruction a wide multiply-add is (K11's two forms), and the
+    # probes' loop bodies
+    sass = {}
+    for name, fns in PROBE_SASS.items():
+        for fn in fns:
+            mix = sass_loop_mix(lib_dir / f"lib{LIBS[name]}.so", fn)
+            log(f"  SASS loop of {fn}: {json.dumps(mix)}")
+            sass.setdefault(name, {})[fn] = mix
+    fn = PROBE_SASS["probe_fe"][1]  # fe15's loop is a call: count the called fe_mul with it
+    sass["probe_fe"][fn + " (whole)"] = mix = sass_function_mix(lib_dir / f"lib{LIBS['probe_fe']}.so", fn)
+    log(f"  SASS of {fn} and the fe_mul it calls: {json.dumps(mix)}")
 
     log("kernels vs plain (edge cases):")
     errs = check_kernels(random.Random(args.seed), device)
@@ -1806,8 +1950,11 @@ def main() -> int:
     recorders.update(pip_recs)
     errs.update(pip_errs)
 
+    log("roofline probes (K11-K14; the probe scripts at reduced reps):")
+    probe_rows, peak = roofline_probes(args, clock_hz, sass)
+
     log("kernel times at each kernel's largest launch on its path:")
-    rows = kernel_line(recorders, launches, errs, clock_hz)
+    rows = kernel_line(recorders, launches, errs, clock_hz, peak) + probe_rows
     for r in rows:
         if r["name"] in builds:
             r["build"] = builds[r["name"]]
@@ -1817,8 +1964,11 @@ def main() -> int:
             r.setdefault("variants", []).extend(mine)
     log("trace of one verify:")
     trace = trace_verify(*block, accel)
-    print(json.dumps({"kernels": rows, "txs": args.txs, **per_tx, "fused_block": fused, "ecdlp": ecdlp,
-                      "mesh": mesh, "dcn": dcn, "pippenger": pippenger, "trace": trace}), flush=True)
+    result = json.dumps({"kernels": rows, "txs": args.txs, **per_tx, "fused_block": fused, "ecdlp": ecdlp,
+                         "mesh": mesh, "dcn": dcn, "pippenger": pippenger, "measured_peak_muladds_per_s": peak,
+                         "trace": trace})
+    (OUT / "kernels_line.json").write_text(result)
+    print(result, flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -75,6 +75,10 @@ OMITTED = {
 }
 
 SOURCES = sorted(p.relative_to(REPO).as_posix() for p in PORT.rglob("*.py")) + ["chip_smoke.py"]
+# the roofline probes and their scripts, new in the port: no JAX counterpart
+# module to copy, held to the no-JAX rule like every source
+PROBE_MODULES = ("ops/probes.py", "scripts/__init__.py", "scripts/_probe.py", "scripts/bench_roofline.py",
+                 "scripts/bench_fe13.py", "scripts/bench_qtile.py")
 COPIES = sorted(
     p.relative_to(PORT).as_posix()
     for pattern in ("*.py", "*.cpp", "*.inc")
@@ -213,6 +217,25 @@ for i in range(2):
     ).build(GenerationBalance({NATIVE_ASSET: 100}, sender), sender.keypair))
 verify_batch(txs, ledger, accel=Accelerator(device="cpu", tile=8, qtile=8))
 assert ledger.get_bal_decrypted(pk_r, NATIVE_ASSET) == mul_base(21)
+print(sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "xelis_he_tpu")))
+"""
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.strip().splitlines()[-1] == "[]"
+
+
+def test_probe_modules_import_no_jax():
+    """The probe modules are among the sources checked above, are no copy of
+    a JAX-package module, and load in a fresh interpreter without jax or
+    xelis_he_tpu."""
+    assert {f"xelis_he_tpu_torch/{m}" for m in PROBE_MODULES} <= set(SOURCES)
+    assert not set(PROBE_MODULES) & set(COPIES)
+    code = """
+import sys
+import xelis_he_tpu_torch.ops.probes
+import xelis_he_tpu_torch.scripts.bench_fe13
+import xelis_he_tpu_torch.scripts.bench_qtile
+import xelis_he_tpu_torch.scripts.bench_roofline
 print(sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "xelis_he_tpu")))
 """
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=300)

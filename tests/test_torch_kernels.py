@@ -459,7 +459,8 @@ def test_wrappers_check_shapes_and_devices():
         K.window_sums(torch.zeros((2, 6, 4, 18), dtype=torch.int32))
     assert K.launches == {"decompress": 0, "windowed_lanes_k8": 0, "tile_sums": 0, "compress": 0,
                           "windowed_lanes": 0, "windowed_lanes_k8_fe15": 0, "daa_lanes": 0, "add_compress": 0,
-                          "bucket_sums": 0, "window_sums": 0}
+                          "bucket_sums": 0, "window_sums": 0,
+                          "probe_imad": 0, "probe_mul15": 0, "probe_mul13": 0, "probe_fe": 0}
 
 
 # -- csrc/ed25519.cuh built for the host ----------------------------------------
@@ -503,6 +504,8 @@ def shim(tmp_path_factory):
     lib.shim_k6_split.restype = i
     lib.shim_k7_quad.restype = i
     lib.shim_mul_count.restype = ctypes.c_ulonglong
+    lib.shim_wide_products.argtypes = [i, i]
+    lib.shim_wide_products.restype = ctypes.c_ulonglong
     lib.shim_sq_count.restype = ctypes.c_ulonglong
     return lib
 
@@ -513,6 +516,20 @@ def _ptr(a):
 
 def _counts(shim):
     return shim.shim_mul_count(), shim.shim_sq_count()
+
+
+def test_cuh_wide_products_set_the_muladd_counts(shim):
+    """The 32-bit multiply-adds the bounds charge a field operation
+    (MULADDS_PER_FIELD_*) are its 32 x 32 -> 64-bit products, counted in the
+    host build, at WIDE_SLOTS each (K11's wide form, PERF.md), and its
+    multiplies by 19: 10 and 5 on the radix-2^25.5 tier, 17 on fe15."""
+    wide = {(t, sq): shim.shim_wide_products(t, sq) for t in (0, 1) for sq in (0, 1)}
+    assert wide == {(0, 0): 100, (0, 1): 55, (1, 0): 324, (1, 1): 171}
+    assert K.WIDE_SLOTS == 2
+    assert K.MULADDS_PER_FIELD_MUL == wide[0, 0] * K.WIDE_SLOTS + 10
+    assert K.MULADDS_PER_FIELD_SQ == wide[0, 1] * K.WIDE_SLOTS + 5
+    assert K.MULADDS_PER_FIELD_MUL15 == wide[1, 0] * K.WIDE_SLOTS + 17
+    assert K.MULADDS_PER_FIELD_SQ15 == wide[1, 1] * K.WIDE_SLOTS + 17
 
 
 def test_cuh_square_equals_mul_by_itself(shim):

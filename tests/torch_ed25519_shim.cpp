@@ -220,6 +220,22 @@ void shim_window_sums(const int32_t *buckets, int32_t *out, int W, int c) {
 
 int shim_k10_threads(void) { return K10_THREADS; }
 
+// the 32 x 32 -> 64-bit products of one fe_mul (or fe_sq) on the radix-2^25.5
+// tier or on fe15
+unsigned long long shim_wide_products(int tier15, int square) {
+  xhe_wide_count = 0;
+  if (tier15) {
+    fe15 a, h;
+    fe_set_small(a, 3);
+    square ? fe_sq(h, a) : fe_mul(h, a, a);
+  } else {
+    fe a, h;
+    fe_set_small(a, 3);
+    square ? fe_sq(h, a) : fe_mul(h, a, a);
+  }
+  return xhe_wide_count;
+}
+
 unsigned long long shim_mul_count(void) { return xhe_mul_count; }
 
 unsigned long long shim_sq_count(void) { return xhe_sq_count; }

@@ -35,13 +35,16 @@
 #endif
 
 #ifdef XHE_COUNT_MULS
-// host-only test hook: counts field multiplications and squarings
-static unsigned long long xhe_mul_count = 0, xhe_sq_count = 0;
+// host-only test hook: counts field multiplications and squarings, and
+// their 32 x 32 -> 64-bit products
+static unsigned long long xhe_mul_count = 0, xhe_sq_count = 0, xhe_wide_count = 0;
 #define XHE_COUNT_MUL() (++xhe_mul_count)
 #define XHE_COUNT_SQ() (++xhe_sq_count)
+#define XHE_COUNT_WIDE() (++xhe_wide_count)
 #else
 #define XHE_COUNT_MUL() ((void)0)
 #define XHE_COUNT_SQ() ((void)0)
+#define XHE_COUNT_WIDE() ((void)0)
 #endif
 
 namespace xhe {
@@ -189,6 +192,7 @@ static XHE_HD void fe_mul(fe &h, const fe &f, const fe &g) {
 #pragma unroll
     for (int j = 0; j < 10; ++j) {
       const uint32_t a = ((i & 1) && (j & 1)) ? f2[i] : f.v[i];
+      XHE_COUNT_WIDE();
       if (i + j < 10)
         t[i + j] += (uint64_t)a * g.v[j];
       else
@@ -214,6 +218,7 @@ static XHE_HD void fe_sq(fe &h, const fe &f) {
     for (int j = i; j < 10; ++j) {
       uint32_t a = (i == j) ? f.v[i] : 2u * f.v[i];
       if ((i & 1) && (j & 1)) a *= 2u;
+      XHE_COUNT_WIDE();
       if (i + j < 10)
         t[i + j] += (uint64_t)a * f.v[j];
       else
@@ -525,7 +530,10 @@ static XHE_NOINLINE void fe_mul(fe15 &h, const fe15 &f, const fe15 &g) {
 #pragma unroll
   for (int i = 0; i < 18; ++i) {
 #pragma unroll
-    for (int j = 0; j < 18; ++j) t[i + j] += (uint64_t)f.v[i] * g.v[j];
+    for (int j = 0; j < 18; ++j) {
+      XHE_COUNT_WIDE();
+      t[i + j] += (uint64_t)f.v[i] * g.v[j];
+    }
   }
   fe15_reduce(h, t);
 }
@@ -539,9 +547,13 @@ static XHE_NOINLINE void fe_sq(fe15 &h, const fe15 &f) {
   for (int k = 0; k < 35; ++k) t[k] = 0;
 #pragma unroll
   for (int i = 0; i < 18; ++i) {
+    XHE_COUNT_WIDE();
     t[2 * i] += (uint64_t)f.v[i] * f.v[i];
 #pragma unroll
-    for (int j = i + 1; j < 18; ++j) t[i + j] += (uint64_t)(2u * f.v[i]) * f.v[j];
+    for (int j = i + 1; j < 18; ++j) {
+      XHE_COUNT_WIDE();
+      t[i + j] += (uint64_t)(2u * f.v[i]) * f.v[j];
+    }
   }
   fe15_reduce(h, t);
 }

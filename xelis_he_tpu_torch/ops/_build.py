@@ -21,7 +21,8 @@ import time
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = pathlib.Path(__file__).resolve().parents[2] / "build" / "xelis_he_tpu_torch"
 KERNELS = ("decompress", "windowed_lanes", "tile_sums", "compress",
-           "windowed_lane", "windowed_lanes_fe15", "daa_lanes", "add_compress", "bucket_sums", "window_sums")
+           "windowed_lane", "windowed_lanes_fe15", "daa_lanes", "add_compress", "bucket_sums", "window_sums",
+           "probe_imad", "probe_mul15", "probe_mul13", "probe_fe")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -41,6 +42,10 @@ SIGNATURES = {
     "add_compress": ("xhe_add_compress", [_vp, _vp, _vp, _vp, _int, _int, _int, _int, _vp]),
     "bucket_sums": ("xhe_bucket_sums", [_vp, _vp, _vp, _vp, _int, _int, _int, _vp]),
     "window_sums": ("xhe_window_sums", [_vp, _vp, _vp, _vp, _int, _int, _vp]),
+    "probe_imad": ("xhe_probe_imad", [_vp, _vp, _vp, _int, _int, _int, _vp]),
+    "probe_mul15": ("xhe_probe_mul15", [_vp, _vp, _vp, _int, _int, _int, _vp]),
+    "probe_mul13": ("xhe_probe_mul13", [_vp, _vp, _vp, _int, _int, _int, _vp]),
+    "probe_fe": ("xhe_probe_fe", [_vp, _vp, _vp, _int, _int, _int, _int, _vp]),
 }
 
 _lock = threading.Lock()

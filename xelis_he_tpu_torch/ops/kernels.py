@@ -29,7 +29,9 @@ with the same formulas in the same order, so the two agree bit for bit.
 ``launches`` counts kernel launches only.
 
 Why each kernel is bound by operations, not bytes, and what its design does
-about it, is noted at the top of its .cu file.
+about it, is noted at the top of its .cu file.  The roofline probes K11-K14
+(csrc/probe_*.cu) have their wrappers in ops/probes.py and their launch
+counts in ``launches``.
 """
 
 from __future__ import annotations
@@ -60,7 +62,9 @@ N_WORDS = 8  # 32-bit words of a packed scalar
 
 launches = {"decompress": 0, "windowed_lanes_k8": 0, "tile_sums": 0, "compress": 0,
             "windowed_lanes": 0, "windowed_lanes_k8_fe15": 0, "daa_lanes": 0, "add_compress": 0,
-            "bucket_sums": 0, "window_sums": 0}
+            "bucket_sums": 0, "window_sums": 0,
+            # the roofline probes K11-K14 (ops/probes.py), which no block path runs
+            "probe_imad": 0, "probe_mul15": 0, "probe_mul13": 0, "probe_fe": 0}
 
 
 def reset_launches() -> None:
@@ -85,17 +89,21 @@ DAA_MULS_PER_SET_BIT = 9
 DBL_MULS, DBL_SQS = 4, 4  # a doubling with T (ge_dbl)
 K9_LEVELS = 32  # partial sums a thread of K9 keeps (csrc/ed25519.cuh): runs of any int32 length
 K10_THREADS = 256  # threads a window of K10, at most (csrc/ed25519.cuh)
-# 32-bit multiply-adds of one radix-2^25.5 field multiplication: 100
-# 32x32->64 products (two 32-bit halves each) and 10 multiplies by 19; of a
-# squaring: 55 products and the 5 multiplies by 19 of the wrapped limbs
-MULADDS_PER_FIELD_MUL = 210
-MULADDS_PER_FIELD_SQ = 115
-# on K6's 15-bit tier: 324 products (171 in a squaring) of two 15-bit limbs,
-# each below 2^30 and so one 32-bit multiply, and the 17 multiplies by 19 of
-# the carried high limbs; the 64-bit column sums are additions, which this
-# count leaves out on both tiers
-MULADDS_PER_FIELD_MUL15 = 341
-MULADDS_PER_FIELD_SQ15 = 188
+# Issue slots of a 32 x 32 -> 64-bit multiply-add (IMAD.WIDE.U32 and the
+# additions of its 64-bit sum) in 32-bit multiply-adds: K11's wide form runs
+# at 1/2.53 of its u32 form's rate on the H100 (PERF.md), so every 64-bit
+# column product of either tier is charged two.
+WIDE_SLOTS = 2
+# 32-bit multiply-adds of one radix-2^25.5 field multiplication: 100 wide
+# products and 10 multiplies by 19; of a squaring: 55 products and the 5
+# multiplies by 19 of the wrapped limbs
+MULADDS_PER_FIELD_MUL = 100 * WIDE_SLOTS + 10
+MULADDS_PER_FIELD_SQ = 55 * WIDE_SLOTS + 5
+# on K6's 15-bit tier: 324 wide products (171 in a squaring) summed in 64-bit
+# columns, and the 17 multiplies by 19 of the folded columns; the additions
+# of the carries are left out on both tiers
+MULADDS_PER_FIELD_MUL15 = 324 * WIDE_SLOTS + 17
+MULADDS_PER_FIELD_SQ15 = 171 * WIDE_SLOTS + 17
 
 
 # What K2 and K6 execute a slot when the slot is split over ``split``
