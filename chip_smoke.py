@@ -75,15 +75,16 @@ Phases, each of which fails the run loudly:
     carry variants) and K14 (the port's fe_mul/fe_sq on both tiers), every
     launch held to its plain version bit for bit (every lane at 4 reps, a
     sample of lanes at the timed reps, K14's sample also by value against
-    Python's pow), and K5, K2 and K6 at the scripts' shapes against the
-    rates K14 predicts;
+    Python's pow; the 4-rep launches count among the phase's launches), and
+    K5, K2 and K6 at the scripts' shapes against the rates K14 predicts;
 12. kernel times: each kernel on the inputs of its largest launch on its
     path, as device time (torch.profiler's records of it over 5 calls) and
     as the time of a call in a run of 10 back to back (CUDA events: for a
     small kernel that is mostly the host's launch cost), beside its plain
     version's time (CUDA events around one call, median of 3) and the card's
     bound, with the bound at K11's measured multiply-add rate beside it
-    (K11-K14: their rows at 16,384 lanes from phase 11d); K3 also at every
+    (K11-K14: their rows at 16,384 lanes from phase 11d, each with its
+    plateau's launch beside it); K3 also at every
     other shape the path launches it at (the group sums of ``sum_points``
     among them), with phase 10's launches beside them; each kernel's
     mismatch count covers phase 10's launches too;
@@ -162,8 +163,9 @@ KERNELS = {
     "probe_mul13": ("xelis_he_tpu_torch/csrc/probe_mul13.cu", "scripts/bench_roofline.py:135",
                     "probe_mul13_kernel"),
     # no Pallas kernel: the port's own field multiplication in the place of
-    # the probes' production one (_mul13, bench_roofline.py:135)
-    "probe_fe": ("xelis_he_tpu_torch/csrc/probe_fe.cu", "scripts/bench_roofline.py:135", "probe_fe_kernel"),
+    # the probes' production one (_mul13)
+    "probe_fe": ("xelis_he_tpu_torch/csrc/probe_fe.cu",
+                 "none: the port's fe_mul/fe_sq (xelis_he_tpu_torch/csrc/ed25519.cuh)", "probe_fe_kernel"),
 }
 PROBE_KERNELS = ("probe_imad", "probe_mul15", "probe_mul13", "probe_fe")
 # each probe's row in the kernels line: the sweep (ops/probes.py mode) it reports
@@ -1479,8 +1481,10 @@ def roofline_probes(args, clock_hz, sass) -> tuple[list[dict], float]:
     bench_roofline, bench_fe13, bench_qtile) at PROBE_LANES and launches of
     PROBE_TARGET_MS, every sweep holding every launch to its plain version
     (every lane at 4 reps; a sample at the timed reps, K14's also by value);
-    the scripts' lines and sweeps go to chiprun_out/probes.json.  Returns
-    (K11-K14's rows of the kernels line, K11's measured multiply-adds a
+    the scripts' lines and sweeps go to chiprun_out/probes.json.  A probe's
+    launches are all those of the scripts' run, the 4-rep checks among
+    them.  Returns (K11-K14's rows of the kernels line, each at 16,384 lanes
+    with its plateau's launch beside it, and K11's measured multiply-adds a
     second)."""
     import torch
 
@@ -1489,8 +1493,8 @@ def roofline_probes(args, clock_hz, sass) -> tuple[list[dict], float]:
     from xelis_he_tpu_torch.scripts import bench_fe13, bench_qtile, bench_roofline
 
     device = torch.device("cuda")
-    ns = argparse.Namespace(device=device, lanes=PROBE_LANES, target_ms=PROBE_TARGET_MS, seed=args.seed,
-                            no_check=False, end_lanes=262_144, end_slots=B.REF_LANES)
+    ns = argparse.Namespace(device=device, lanes=PROBE_LANES, target_ms=PROBE_TARGET_MS, end_lanes=262_144,
+                            end_slots=B.REF_LANES)
     cache = {}
     K.reset_launches()
     lines = [ln for mod in (bench_roofline, bench_fe13, bench_qtile) for ln in mod.run(ns, cache, log=log)]
@@ -1498,30 +1502,44 @@ def roofline_probes(args, clock_hz, sass) -> tuple[list[dict], float]:
     launches = {k: K.launches[k] for k in PROBE_KERNELS}
     expect_launched("roofline probes", launches, PROBE_KERNELS)
     peak = cache["imad"]["peak"]["muladds_per_s"]
+
+    def bounds(probe, r):
+        """(bound ms, bound ms at the measured peak, what bounds it) of the
+        sweep row ``r``'s launch."""
+        muladds = probe.muladds * r["lanes"] * r["reps"]
+        nbytes = probe.rows * r["lanes"] * 4 * (2 + (4 if probe.name == "probe_fe" else 1))
+        ops_ms, bytes_ms = muladds / (INT32_LANES * clock_hz) * 1e3, nbytes / MEM_BYTES_PER_S * 1e3
+        by = "operations" if ops_ms >= bytes_ms else "bytes"
+        return max(ops_ms, bytes_ms), max(muladds / peak * 1e3, bytes_ms), by
+
     rows = []
     for name in PROBE_KERNELS:
         m = cache[PROBE_ROWS[name]]
         r, probe = m["ref"], B.PROBES[m["label"]]
-        x, y = B.inputs(probe, r["lanes"], args.seed, device)
+        x, y = B.inputs(probe, r["lanes"], device)
         plain_ms = time_ms(lambda: probe.plain(x, y, r["reps"]), reps=1)
-        muladds = probe.muladds * r["lanes"] * r["reps"]
-        nbytes = probe.rows * r["lanes"] * 4 * (2 + (4 if name == "probe_fe" else 1))
-        ops_ms, bytes_ms = muladds / (INT32_LANES * clock_hz) * 1e3, nbytes / MEM_BYTES_PER_S * 1e3
-        bound_ms, peak_ms = max(ops_ms, bytes_ms), max(muladds / peak * 1e3, bytes_ms)
+        bound_ms, peak_ms, bound_by = bounds(probe, r)
+        p = m["plateau"]
+        p_bound, p_peak, _ = bounds(probe, p)
         source, replaces, _ = KERNELS[name]
         keep = ("lanes", "reps", "ms", "muladds_per_s", "ops_per_s")
+        sweeps = [v for v in cache.values() if v["probe"] == name]
         variants = [{"mode": v["label"], "at_16384": {k: v["ref"][k] for k in keep},
-                     "peak": {k: v["peak"][k] for k in keep}, "plateau_lanes": v["plateau"]["lanes"]}
-                    for v in cache.values() if v["probe"] == name]
+                     "peak": {k: v["peak"][k] for k in keep}, "plateau_lanes": v["plateau"]["lanes"]} for v in sweeps]
+        checked = [row for v in sweeps for row in v["sweep"]]
         row = {"name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": launches[name],
-               "max_abs_err": 0, "max_mismatch": 0, "shape": f"{m['label']}, {r['lanes']} lanes, {r['reps']} reps",
-               "ms": r["ms"], "plain_ms": plain_ms, "bound_ms": bound_ms,
-               "bound_by": "operations" if ops_ms >= bytes_ms else "bytes", "library_ms": None,
+               "max_abs_err": max(c["max_abs_err"] for c in checked),
+               "max_mismatch": sum(c["mismatches_4_reps"] + c["mismatches_timed_sample"] for c in checked),
+               "shape": f"{m['label']}, {r['lanes']} lanes, {r['reps']} reps",
+               "ms": r["ms"], "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
                "share_of_bound": bound_ms / r["ms"], "bound_ms_measured_peak": peak_ms,
-               "share_of_measured_peak": peak_ms / r["ms"], "variants": variants,
-               "sass_loop_mix": sass.get(name, {})}
+               "share_of_measured_peak": peak_ms / r["ms"],
+               "plateau": {"lanes": p["lanes"], "reps": p["reps"], "ms": p["ms"], "bound_ms": p_bound,
+                           "share_of_bound": p_bound / p["ms"], "share_of_measured_peak": p_peak / p["ms"]},
+               "variants": variants, "sass_loop_mix": sass.get(name, {})}
         log(f"  {name} at {row['shape']}: {r['ms']:.4f} ms (plain {plain_ms:.1f} ms, bound {bound_ms:.5f} ms, "
-            f"{100 * row['share_of_bound']:.1f}%; at the measured peak {100 * row['share_of_measured_peak']:.1f}%)")
+            f"{100 * row['share_of_bound']:.1f}%; at the measured peak {100 * row['share_of_measured_peak']:.1f}%); "
+            f"plateau {p['lanes']} lanes: {p['ms']:.4f} ms, {100 * p_bound / p['ms']:.1f}% of its bound")
         rows.append(row)
     return rows, peak
 

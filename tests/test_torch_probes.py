@@ -216,6 +216,71 @@ def test_muladd_counts():
     assert PR.fe_muladds("fe", False) == K.MULADDS_PER_FIELD_MUL
 
 
+# -- the probe scripts (xelis_he_tpu_torch/scripts/) on the CPU ------------------
+
+SCRIPT_METRICS = {
+    "bench_roofline": ["vpu_u32_mul_per_sec", "vpu_u32_mul_per_sec_wide", "field_muls_per_sec_chip",
+                       "field_muls_per_sec_chip_fe13", "port_fe_mul_per_sec", "port_fe_sq_per_sec",
+                       "port_fe15_mul_per_sec", "port_fe15_sq_per_sec", "msm_windowed_pts_per_sec",
+                       "msm_quad_pts_per_sec"],
+    "bench_fe13": ["fe13_mul_3pass", "fe13_mul_2pass_plus_consumer", "fe13_mul_2pass_only", "fe15_mul_prod",
+                   "quad_kernel_fe13=0", "quad_kernel_fe13=1"],
+    "bench_qtile": ["fe15_mul_T128", "fe15_mul_T256", "fe15_mul_T512", "quad_qtile_sweep"],
+}
+
+
+@pytest.fixture(scope="module")
+def sweeps():
+    """The sweeps the three scripts share within a run."""
+    return {}
+
+
+@pytest.mark.parametrize("script", SCRIPT_METRICS)
+def test_script_runs_plain_versions_on_cpu(script, sweeps, capsys):
+    """``--device cpu --lanes 16``: every sweep checked against the plain
+    versions with 0 mismatches, the JAX scripts' metric names, and no time
+    or rate printed (the end kernels at 8 lanes and 2 slots of 8)."""
+    import importlib
+    import json
+
+    from xelis_he_tpu_torch.scripts import _probe as B
+
+    mod = importlib.import_module(f"xelis_he_tpu_torch.scripts.{script}")
+    args = B.cli("probe", ["--device", "cpu", "--lanes", "16", "--target-ms", "1"])
+    args.end_lanes, args.end_slots = 8, 2
+    lines = mod.run(args, sweeps, log=lambda *a: None)
+    printed = [json.loads(ln) for ln in capsys.readouterr().out.splitlines()]
+    assert printed == lines
+    assert [ln["metric"] for ln in lines] == SCRIPT_METRICS[script]
+    for ln in lines:
+        assert ln["value"] is None and ln["card"].startswith("cpu")
+        assert not any(isinstance(v, float) for v in ln.values())
+    for m in sweeps.values():
+        for row in m["sweep"]:
+            assert row["lanes"] == 16 and row["reps"] >= 4
+            assert row["mismatches_4_reps"] == row["mismatches_timed_sample"] == row["max_abs_err"] == 0
+
+
+def test_script_checks_refuse_a_mismatch():
+    from xelis_he_tpu_torch.scripts import _probe as B
+
+    a = torch.tensor([[1, -1, 7]], dtype=torch.int32)
+    assert B._compare(a, a.clone(), "same") == (0, 0)
+    with pytest.raises(AssertionError, match="1 limbs differ"):
+        B._compare(a, torch.tensor([[1, 0x7FFFFFFF, 7]], dtype=torch.int32), "one limb")
+
+
+def test_scripts_need_a_card_unless_asked_for_the_cpu(monkeypatch):
+    from xelis_he_tpu_torch.scripts import _probe as B
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        B.device_of("cuda")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        B.cli("probe", [])
+    assert B.device_of("cpu").type == "cpu"
+
+
 # -- csrc/probes.cuh built for the host ------------------------------------------
 
 

@@ -90,9 +90,10 @@ DBL_MULS, DBL_SQS = 4, 4  # a doubling with T (ge_dbl)
 K9_LEVELS = 32  # partial sums a thread of K9 keeps (csrc/ed25519.cuh): runs of any int32 length
 K10_THREADS = 256  # threads a window of K10, at most (csrc/ed25519.cuh)
 # Issue slots of a 32 x 32 -> 64-bit multiply-add (IMAD.WIDE.U32 and the
-# additions of its 64-bit sum) in 32-bit multiply-adds: K11's wide form runs
-# at 1/2.53 of its u32 form's rate on the H100 (PERF.md), so every 64-bit
-# column product of either tier is charged two.
+# additions of its 64-bit sum) in 32-bit multiply-adds: K11's wide form, an
+# IMAD.WIDE.U32 and an IADD3 a step, runs at 1/2.55 of its u32 form's rate
+# on an H100 80GB HBM3 at 700 W (PERF.md section 6, the probe scripts' run),
+# so every 64-bit column product of either tier is charged two.
 WIDE_SLOTS = 2
 # 32-bit multiply-adds of one radix-2^25.5 field multiplication: 100 wide
 # products and 10 multiplies by 19; of a squaring: 55 products and the 5

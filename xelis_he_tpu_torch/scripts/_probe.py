@@ -33,6 +33,8 @@ from ..ops import probes as PR
 REF_LANES = 16_384  # the TPU scripts' GRID * TILE
 LANES = tuple(1 << k for k in range(10, 21))  # the sweep: 1,024 to 1,048,576 lanes
 CHECK_CHUNK = 1 << 18  # lanes a plain version holds at once in the 4-rep check
+SEED = 1  # of the probes' inputs
+SAMPLE = 32  # lanes held to the plain version at the timed reps
 INT32_LANES = 132 * 64  # the H100 SXM's INT32 lanes: 132 SMs x 64
 L = 2**252 + 27742317777372353535851937790883648493
 
@@ -73,22 +75,22 @@ def emit(line: dict, info: dict) -> dict:
 
 
 def launch_ms(fn, device: torch.device, n: int = 3) -> float:
-    """Median of ``n`` timings of one call of ``fn`` (warm): CUDA events on
-    the card, the host clock on the CPU."""
+    """Median of ``n`` timings of one call of ``fn`` (warm) by CUDA events on
+    the card; on the CPU, whose times no line reports, one call by the host
+    clock."""
+    if device.type != "cuda":
+        t0 = time.perf_counter()
+        fn()
+        return (time.perf_counter() - t0) * 1e3
     fn()
     times = []
     for _ in range(n):
-        if device.type == "cuda":
-            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            a.record()
-            fn()
-            b.record()
-            b.synchronize()
-            times.append(a.elapsed_time(b))
-        else:
-            t0 = time.perf_counter()
-            fn()
-            times.append((time.perf_counter() - t0) * 1e3)
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
     return statistics.median(times)
 
 
@@ -127,20 +129,23 @@ PROBES = {p.label: p for p in [
 ]}
 
 
-def inputs(probe: Probe, lanes: int, seed: int, device) -> tuple[torch.Tensor, torch.Tensor]:
+def inputs(probe: Probe, lanes: int, device) -> tuple[torch.Tensor, torch.Tensor]:
     """The TPU scripts' inputs: x below 2^width, y in [1, 2^width) (K14: the
-    tier's carried limbs), made with numpy from ``seed``."""
-    rng = np.random.default_rng(seed)
+    tier's carried limbs), made with numpy from SEED."""
+    rng = np.random.default_rng(SEED)
     x = np.stack([rng.integers(0, 1 << w, lanes, dtype=np.uint32) for w in probe.widths])
     y = np.stack([rng.integers(1, 1 << w, lanes, dtype=np.uint32) for w in probe.widths])
     return tuple(torch.from_numpy(a.view(np.int32)).to(device) for a in (x, y))
 
 
-def _mismatch(got: torch.Tensor, want: torch.Tensor, what: str) -> int:
-    n = int((got.cpu() != want.cpu()).sum())
+def _compare(got: torch.Tensor, want: torch.Tensor, what: str) -> tuple[int, int]:
+    """(limbs that differ, largest difference) of a launch and its plain
+    version; raises if any limb differs."""
+    diff = (got.cpu().to(torch.int64) & PR.M32) - (want.cpu().to(torch.int64) & PR.M32)
+    n = int((diff != 0).sum())
     if n:
         raise AssertionError(f"{what}: {n} limbs differ from the plain version")
-    return n
+    return n, int(diff.abs().max()) if diff.numel() else 0
 
 
 def _pow_check(probe: Probe, x, y, out, reps: int) -> None:
@@ -155,27 +160,25 @@ def _pow_check(probe: Probe, x, y, out, reps: int) -> None:
                 raise AssertionError(f"{probe.label}: lane {t} chain {k} is not x_k y^reps mod p")
 
 
-def measure(label: str, device, lanes=LANES, target_ms: float = 5.0, seed: int = 1, sample: int = 32,
-            check: bool = True, log=print) -> dict:
+def measure(label: str, device, lanes=LANES, target_ms: float = 5.0, log=print) -> dict:
     """Sweep probe ``label`` over ``lanes``: at each count the reps that take
     ``target_ms`` (at most the probe's ``max_reps``), the launch's time and
     rate (multiply-adds and field operations a second); the check at 4 reps
-    on every lane and at the timed reps on ``sample`` lanes."""
+    on every lane and at the timed reps on SAMPLE lanes, with the limbs that
+    differ and the largest difference of each."""
     probe = PROBES[label]
-    x_all, y_all = inputs(probe, max(lanes), seed, device)
+    x_all, y_all = inputs(probe, max(lanes), device)
     rows = []
     for n in lanes:
         x, y = x_all[:, :n].contiguous(), y_all[:, :n].contiguous()
         row = {"lanes": n}
-        if check:
-            # a launch made to hold the kernel to its plain version is not counted
-            counted = K.launches[probe.name]
-            got = probe.call(x, y, 4)
-            K.launches[probe.name] = counted
-            row["mismatches_4_reps"] = sum(
-                _mismatch(got[..., a : a + CHECK_CHUNK], probe.plain(x[:, a : a + CHECK_CHUNK].contiguous(),
-                                                                     y[:, a : a + CHECK_CHUNK].contiguous(), 4),
-                          f"{label} at {n} lanes") for a in range(0, n, CHECK_CHUNK))
+        got = probe.call(x, y, 4)
+        checks = [_compare(got[..., a : a + CHECK_CHUNK],
+                           probe.plain(x[:, a : a + CHECK_CHUNK].contiguous(),
+                                       y[:, a : a + CHECK_CHUNK].contiguous(), 4),
+                           f"{label} at {n} lanes") for a in range(0, n, CHECK_CHUNK)]
+        row["mismatches_4_reps"] = sum(c[0] for c in checks)
+        row["max_abs_err"] = max(c[1] for c in checks)
         reps = 16
         for _ in range(2):  # calibrate; once more if the first guess was far off
             ms = launch_ms(lambda: probe.call(x, y, reps), device, n=1)
@@ -193,14 +196,15 @@ def measure(label: str, device, lanes=LANES, target_ms: float = 5.0, seed: int =
         # K11's operations are its multiply-adds; the others' field operations
         ops = probe.muladds if probe.name == "probe_imad" else PR.CHAINS
         row["ops_per_s"] = ops * n * reps / (ms * 1e-3)
-        if check:
-            cols = torch.linspace(0, n - 1, min(sample, n)).round().long().unique()
-            xs, ys = x[:, cols.to(x.device)].cpu(), y[:, cols.to(x.device)].cpu()
-            got = out["v"][..., cols.to(x.device)].cpu()
-            row["mismatches_timed_sample"] = _mismatch(got, probe.plain(xs, ys, reps),
-                                                       f"{label} at {n} lanes, {reps} reps, {len(cols)} lanes")
-            if probe.name == "probe_fe":
-                _pow_check(probe, xs, ys, got, reps)
+        cols = torch.linspace(0, n - 1, min(SAMPLE, n)).round().long().unique()
+        xs, ys = x[:, cols.to(x.device)].cpu(), y[:, cols.to(x.device)].cpu()
+        got = out["v"][..., cols.to(x.device)].cpu()
+        mismatches, err = _compare(got, probe.plain(xs, ys, reps),
+                                   f"{label} at {n} lanes, {reps} reps, {len(cols)} lanes")
+        row["mismatches_timed_sample"] = mismatches
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+        if probe.name == "probe_fe":
+            _pow_check(probe, xs, ys, got, reps)
         rate = f"{ms:.4f} ms, {row['muladds_per_s'] / 1e9:.1f} G multiply-adds/s" if device.type == "cuda" else "checked"
         log(f"  {label} at {n} lanes: {reps} reps, {rate}")
         rows.append(row)
@@ -332,8 +336,6 @@ def cli(description: str, argv=None):
     ap.add_argument("--device", default="cuda", help="cuda (the default) or cpu (plain versions, small sizes)")
     ap.add_argument("--lanes", default=None, help="comma-separated lane counts of the sweep")
     ap.add_argument("--target-ms", type=float, default=None, help="time of a timed launch (default 5 on the card)")
-    ap.add_argument("--seed", type=int, default=1)
-    ap.add_argument("--no-check", action="store_true", help="skip the checks against the plain versions")
     args = ap.parse_args(argv)
     args.device = device_of(args.device)
     cpu = args.device.type != "cuda"
@@ -343,10 +345,10 @@ def cli(description: str, argv=None):
     return args
 
 
-def run_measure(cache: dict, label: str, device, lanes, target_ms, seed, check, log) -> dict:
+def run_measure(cache: dict, label: str, device, lanes, target_ms, log) -> dict:
     """``measure`` once per label and run (scripts called one after another
     share their sweeps through ``cache``)."""
     if label not in cache:
         log(f"{label}:")
-        cache[label] = measure(label, device, lanes, target_ms, seed, check=check, log=log)
+        cache[label] = measure(label, device, lanes, target_ms, log=log)
     return cache[label]

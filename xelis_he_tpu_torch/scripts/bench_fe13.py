@@ -30,8 +30,7 @@ VARIANTS = (("mul13_3pass", "fe13_mul_3pass"), ("mul13_2pass_consumer", "fe13_mu
 def run(args, cache: dict | None = None, log=print) -> list[dict]:
     cache = {} if cache is None else cache
     info = B.card(args.device)
-    measure = lambda k: B.run_measure(cache, k, args.device, args.lanes, args.target_ms, args.seed,  # noqa: E731
-                                      not args.no_check, log)
+    measure = lambda k: B.run_measure(cache, k, args.device, args.lanes, args.target_ms, log)  # noqa: E731
     out = []
     for label, metric in VARIANTS:
         m = measure(label)

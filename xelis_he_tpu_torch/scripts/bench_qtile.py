@@ -24,8 +24,7 @@ def run(args, cache: dict | None = None, log=print) -> list[dict]:
     info = B.card(args.device)
     out = []
     for block in PR.MUL15_BLOCKS:
-        m = B.run_measure(cache, f"mul15_b{block}", args.device, args.lanes, args.target_ms, args.seed,
-                          not args.no_check, log)
+        m = B.run_measure(cache, f"mul15_b{block}", args.device, args.lanes, args.target_ms, log)
         line = B.line(m, f"fe15_mul_T{block}", 1e6, "Mmul/s", block=block)
         line["Mmul_s"] = line.pop("value")  # the JAX script's key
         out.append(B.emit(line, info))

@@ -33,7 +33,7 @@ LABELS = ("imad", "imad_wide", "mul15_b256", "mul13_3pass", "fe_mul", "fe_sq", "
 def run(args, cache: dict | None = None, log=print) -> list[dict]:
     cache = {} if cache is None else cache
     info = B.card(args.device)
-    m = {k: B.run_measure(cache, k, args.device, args.lanes, args.target_ms, args.seed, not args.no_check, log)
+    m = {k: B.run_measure(cache, k, args.device, args.lanes, args.target_ms, log)
          for k in LABELS}
     peak = m["imad"]["peak"]["muladds_per_s"]
     theory = B.INT32_LANES * info["max_sm_mhz"] * 1e6 if "max_sm_mhz" in info else None
