@@ -17,10 +17,12 @@ Phases, each of which fails the run loudly:
    also at counts at and around their blocks' edges, K4 on 4-torsion cosets
    with Z != 1 (both branches of its encode's rotation and sign flip), K2
    and K6 at a ragged slot count, K3 at tiles from 1 to 1024, K7 at lane
-   counts that leave a quad of threads or a warp partly filled, K8 at 1 to
-   8,193 lanes with either side broadcast or neither (sums and encodings);
-   ptxas must report no spills for K1 and K4, and its figures for K6, K7,
-   K8, K9 and K10 are printed;
+   counts that leave a quad of threads or a warp partly filled, K8 on one
+   row against 1 to 8,193 columns, as many rows against one, small grids
+   and the path's grids, 256 x 4,096 (a table launch) and 16 x 8,193 (a
+   decode group) (sums and encodings);
+   ptxas must report no spills for K1, K4 and K8, and its figures for K6-K10
+   are printed;
 4. main path: a block of ``--txs`` one-transfer transactions, built as
    bench.py builds it, verified through xelis_he_tpu_torch.verify_batch on
    ``Accelerator()``: one counted verify (launch counts, synchronising calls,
@@ -49,10 +51,13 @@ Phases, each of which fails the run loudly:
     to its plain version on its own inputs and timed on the device,
     ``fused_block_check`` giving begin/finish's flags, and a tampered
     signature rejected as such;
-11. ECDLP: an l1 = 22 table built on the card (K8), sampled entries against
-    pyref, a flat save/load round trip, ``par_decode`` of 16 values in
-    [0, 2^44) at 8,192 lanes a round, one with a negative ``range_min`` and
-    one out of range (None);
+11. ECDLP: an l1 = 22 table built on the card (K8: the two doubling chains
+    and four launches of 2^20 lanes), sampled entries against pyref, a flat
+    save/load round trip, ``par_decode`` of 16 values in [0, 2^44) at 8,192
+    lanes a round and 16 rounds a launch, one with a negative ``range_min``
+    and one out of range (None, at most ceil(512 / 16) + 1 launches); the
+    build's split (start rows, K8, pull, host sort) and one decode group's
+    (K8 wait, pull, lookup, confirm, Python), from ``ecdlp``'s spans;
 11a. the mesh: ``ShardedMsm`` and ``MultiDeviceMsm`` on a mesh that lists the
     card twice (and ``ShardedMsm`` on ``make_mesh()``), at 512 and 49,152
     lanes, equal to ``accel.msm`` by encoding and to pyref at 64 lanes, with
@@ -66,8 +71,10 @@ Phases, each of which fails the run loudly:
     tampered on rank 1's half, both print REJECT; wall time of each;
 11c. Pippenger: ``MsmEngine(window=13).msm_points`` at 65,536 points (K9,
     K10) equal to ``accel.msm`` by encoding and to pyref at 64 points, K9
-    on a window whose lanes all share one digit, each launch held to its
-    plain version, the call's time beside ``accel.msm``'s;
+    on a window whose lanes all share one digit, each call of K9 (all its
+    passes) and K10 held to its plain version, K9's passes, threads, longest
+    walk and device ms against its bound at 65,536 and on the skewed
+    lanes, the call's time beside ``accel.msm``'s;
 11d. roofline probes: the probe scripts (python -m xelis_he_tpu_torch.scripts.
     bench_roofline, bench_fe13, bench_qtile) at 16,384, 131,072 and
     1,048,576 lanes and launches of ~2 ms: K11's u32 and wide multiply-add
@@ -98,11 +105,13 @@ card's name and power limit as nvidia-smi prints them, and {"ok": true,
 "device": {...}}.  Long logs go to chiprun_out/.  Without a CUDA device, or
 outside a checkout of the repository, it exits non-zero and prints no result.
 
-With ``--kernels-from DIR`` it only times K1-K7 of the port checked out at
+With ``--kernels-from DIR`` it only times K1-K9 of the port checked out at
 DIR (for instance a ``git archive`` of an earlier commit) at the main path's
-largest shapes, and K7 also at a count that fills the card, on inputs made
+largest shapes, K7 also at a count that fills the card, K8 on 16 decode
+rounds of 8,193 lanes (one launch or sixteen, as the tree's K8 takes them)
+and K9 on the digits of 65,536 scalars (all its launches), on inputs made
 from ``--seed``, with a digest of each output, the ptxas figures of K1, K4,
-K6 and K7 and K1's and K4's SASS mix of one squaring, and prints one JSON
+K6-K10 and K1's and K4's SASS mix of one squaring, and prints one JSON
 line: run it on two checkouts in one call to compare them on one card.
 """
 
@@ -543,16 +552,22 @@ def check_kernels(rng: random.Random, device) -> dict:
     return errs
 
 
-K8_COUNTS = (1, 127, 128, 129, 4096, 8193)  # K8's lanes: a block's edges, a table chunk, a decode round
+# K8's grids, rows x columns: one row against 1 to 8,193 columns and as many
+# rows against one column (a block's edges, a table chunk, a decode round),
+# grids that end inside a block, and the path's own: a table launch of the
+# build and a decode group (16 rounds of 8,193 lanes)
+K8_EDGE_COUNTS = (1, 127, 128, 129, 4096, 8193)
+K8_GRIDS = ((3, 43), (64, 129), (256, 4096), (16, 8193))
 
 
 def check_add_compress(rng: random.Random, device, pool_rows, pool_pts, tors, tors_pts) -> tuple[int, int]:
-    """K8 against its plain version, bit for bit (encodings and sums), at
-    K8_COUNTS lanes with side a broadcast, side b broadcast and neither, on
-    addends drawn from K1 rows (Z = 1), host points (Z != 1), the identity
-    and the 4-torsion cosets of K4's check (Z scaled); every sum kept, and
-    at the largest count also only the last (a decode round); encodings of
-    sampled lanes against pyref."""
+    """K8 against its plain version, bit for bit (encodings and sums), on
+    one row against K8_EDGE_COUNTS columns, as many rows against one column
+    and the K8_GRIDS, every column's sums kept, and on the decode group's
+    grid also only the last column's and on the build's none, as the path
+    keeps them; addends drawn from K1 rows (Z = 1), host points (Z != 1),
+    the identity and the 4-torsion cosets of K4's check (Z scaled);
+    encodings of sampled lanes against pyref."""
     import torch
 
     from xelis_he_tpu_torch.ops import kernels as K
@@ -560,27 +575,30 @@ def check_add_compress(rng: random.Random, device, pool_rows, pool_pts, tors, to
 
     rows = torch.cat([pool_rows, tors, K.identity_rows(1, device)])
     pts = pool_pts + [q for q in tors_pts for _ in range(4)] + [IDENTITY]
-    n = max(K8_COUNTS)
+    n = max(K8_EDGE_COUNTS)
     pick = [[rng.randrange(len(pts)) for _ in range(n)] for _ in range(2)]
     pick[0][:4], pick[1][:4] = [len(pts) - 1] * 4, [len(pts) - 1, 0, len(pool_pts), len(pool_pts) + 1]
     a, b = (rows[torch.tensor(p, device=device)].contiguous() for p in pick)
-    # broadcast rows: 4-torsion coset rows (Z scaled), as a cursor or step point
+    # one-row sides: 4-torsion coset rows (Z scaled), as a cursor or step point
     a_one, b_one = (rows[len(pool_pts) + k : len(pool_pts) + k + 1] for k in (1, 6))
+    cases = [(f"1 x {n_}", a_one, b[:n_], 0) for n_ in K8_EDGE_COUNTS]
+    cases += [(f"{n_} x 1", a[:n_], b_one, 0) for n_ in K8_EDGE_COUNTS]
+    cases += [(f"{r} x {c}", a[:r], b[:c], 0) for r, c in K8_GRIDS]
+    (r_b, c_b), (r_d, c_d) = K8_GRIDS[-2:]
+    cases += [(f"{r_b} x {c_b}, no sums (a table launch)", a[:r_b], b[:c_b], None),
+              (f"{r_d} x {c_d}, the last column's sums (a decode group)", a[:r_d], b[:c_d], c_d - 1)]
     results = []
-    for n_ in K8_COUNTS:
-        for what, a_, b_ in (("neither", a[:n_], b[:n_]), ("a broadcast", a_one, b[:n_]),
-                             ("b broadcast", a[:n_], b_one)):
-            a_, b_ = a_.contiguous(), b_.contiguous()
-            got, want = K.add_compress(a_, b_, 0), K.add_compress_plain(a_, b_, 0)
-            results += [expect_equal(f"K8 encodings, {n_} lanes, {what}", got[0], want[0]),
-                        expect_equal(f"K8 sums, {n_} lanes, {what}", got[1], want[1])]
-    got, want = K.add_compress(a[:1], b, n - 1), K.add_compress_plain(a[:1], b, n - 1)
-    results += [expect_equal("K8 encodings, the last sum kept", got[0], want[0]),
-                expect_equal("K8 the last sum", got[1], want[1])]
-    enc = K.add_compress(a, b)[0].cpu().numpy()
-    for i in sorted({*range(min(40, n)), n - 1}):
-        if bytes(enc[i]) != (pts[pick[0][i]] + pts[pick[1][i]]).compress():
-            raise AssertionError(f"K8 lane {i} disagrees with pyref")
+    for what, a_, b_, sums_from in cases:
+        a_, b_ = a_.contiguous(), b_.contiguous()
+        got, want = K.add_compress(a_, b_, sums_from), K.add_compress_plain(a_, b_, sums_from)
+        results.append(expect_equal(f"K8 encodings, {what}", got[0].reshape(-1, 32), want[0].reshape(-1, 32)))
+        if sums_from is not None:
+            results.append(expect_equal(f"K8 sums, {what}", got[1].reshape(-1, 72), want[1].reshape(-1, 72)))
+    r, c = K8_GRIDS[1]
+    enc = K.add_compress(a[:r].contiguous(), b[:c].contiguous())[0].cpu().numpy()
+    for i, j in sorted({*((k % r, k) for k in range(min(40, c))), (r - 1, c - 1), (r - 1, 0)}):
+        if bytes(enc[i, j]) != (pts[pick[0][i]] + pts[pick[1][j]]).compress():
+            raise AssertionError(f"K8 lane ({i}, {j}) disagrees with pyref")
     return worst(*results)
 
 
@@ -636,7 +654,7 @@ class Recorder:
         elif self.name == "window_sums":
             size = args[0].shape[0] * args[0].shape[1]
         elif self.name == "add_compress":
-            size = max(args[0].shape[0], args[1].shape[0])
+            size = args[0].shape[0] * args[1].shape[0]
         else:
             size = args[0].shape[0]
         if size > self.size:
@@ -1128,6 +1146,14 @@ def each_launch(recorders, clock_hz) -> tuple[dict, list[dict]]:
     return errs, rows
 
 
+def ecdlp_split(spans: dict, names, per: str | None = None) -> dict:
+    """ms of each ``ecdlp.<names>`` span in ``spans`` (a metrics snapshot),
+    a call of span ``per`` when given (its mean), else in all."""
+    seconds, counts = spans["span_seconds"], spans["span_counts"]
+    calls = counts.get(per, 1) if per else 1
+    return {k.rsplit(".", 1)[1]: seconds.get(k, 0.0) * 1e3 / calls for k in names}
+
+
 def ecdlp_path(rng: random.Random, accel):
     """Phase 11: an l1 = 22 table built on the card, checked and saved, and
     par_decode at 8,192 lanes a round.  Returns (K8's launches, its
@@ -1138,39 +1164,53 @@ def ecdlp_path(rng: random.Random, accel):
 
     from xelis_he_tpu_torch import scalars
     from xelis_he_tpu_torch.ecdlp import ECDLPArguments, ECDLPTables, par_decode
+    from xelis_he_tpu_torch.metrics import metrics
+    from xelis_he_tpu_torch.ops import kernels as K
     from xelis_he_tpu_torch.pyref.ristretto import mul_base
 
     l1, batch = 22, 8192
     values = [rng.randrange(1 << 44) for _ in range(16)]
     neg = -rng.randrange(1, 1 << 39)
-    out = {}
+    out, split = {}, {}
+    build_spans = [f"ecdlp.build.{k}" for k in ("start_rows", "k8", "pull", "sort")]
+    group_spans = [f"ecdlp.decode.{k}" for k in ("group", "k8_wait", "pull", "lookup", "confirm")]
+
+    def timed(what, fn):
+        metrics.reset()
+        before = K.launches["add_compress"]
+        t0 = time.perf_counter()
+        res = fn()
+        out[what + "_s"] = time.perf_counter() - t0
+        out[what + "_launches"] = K.launches["add_compress"] - before
+        split[what] = metrics.snapshot()
+        return res
 
     def run():
-        t0 = time.perf_counter()
-        tables = ECDLPTables.build(l1, accel=accel)
-        out["build_s"] = time.perf_counter() - t0
+        tables = timed("build", lambda: ECDLPTables.build(l1, accel=accel))
         args = ECDLPArguments(0, 1 << 44)
-        t0 = time.perf_counter()
-        got = [par_decode(tables, mul_base(m), args, accel=accel, batch=batch) for m in values]
-        out["decode_s"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        got_neg = par_decode(tables, mul_base(neg % scalars.L), ECDLPArguments(-(1 << 40), 1 << 40),
-                             accel=accel, batch=batch)
-        out["negative_s"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        got_none = par_decode(tables, mul_base((1 << 44) + 12345), args, accel=accel, batch=batch)
-        out["out_of_range_s"] = time.perf_counter() - t0
+        got = timed("decode", lambda: [par_decode(tables, mul_base(m), args, accel=accel, batch=batch)
+                                       for m in values])
+        got_neg = timed("negative", lambda: par_decode(tables, mul_base(neg % scalars.L),
+                                                       ECDLPArguments(-(1 << 40), 1 << 40), accel=accel, batch=batch))
+        got_none = timed("out_of_range", lambda: par_decode(tables, mul_base((1 << 44) + 12345), args, accel=accel,
+                                                            batch=batch))
         return tables, got, got_neg, got_none
 
     (tables, got, got_neg, got_none), launches, _, recs = counted(run, ("add_compress",))
     expect_launched("ECDLP build and decode", launches, ("add_compress",),
                     [k for k in launches if k != "add_compress"])
     count = 1 << l1
+    chains = (4096 - 1).bit_length() + (count // 4096 - 1).bit_length()  # 4,096 baby steps, 1,024 starts
+    table_launches = -(-count // (1 << 20))
+    if out["build_launches"] != chains + table_launches:
+        raise AssertionError(f"the table took {out['build_launches']} K8 launches, not {chains} + {table_launches}")
+    out["build_split_ms"] = ecdlp_split(split["build"], build_spans)
     log(f"  table l1 = {l1}: {count} baby steps, {tables.keys.nbytes + tables.idx.nbytes} bytes, "
-        f"built in {out['build_s']:.2f} s ({count // 4096} K8 launches of 4,096 lanes, one pull, host sort)")
+        f"built in {out['build_s']:.3f} s: {out['build_launches']} K8 launches ({chains} of the doubling chains, "
+        f"{table_launches} of 2^20 lanes), one pull, host sort; split ms {json.dumps(out['build_split_ms'])}")
     inv = np.empty(count, dtype=np.int64)
     inv[tables.idx] = np.arange(count)
-    edges = [0, 1, 4095, 4096, 4097, count - 1]  # the identity, a chunk's edges, the last step
+    edges = [0, 1, 4095, 4096, 4097, (1 << 20) - 1, 1 << 20, count - 1]  # chunks' and launches' edges
     sample = edges + [rng.randrange(count) for _ in range(1024 - len(edges))]
     for i in sample:
         if int(tables.keys[inv[i]]) != int.from_bytes(mul_base(i).compress()[:8], "little"):
@@ -1195,10 +1235,21 @@ def ecdlp_path(rng: random.Random, accel):
     if got_none is not None:
         raise AssertionError(f"par_decode of a value out of range gave {got_none}")
     rounds = (1 << 44) // (count * batch)
-    out.update({"l1": l1, "batch": batch, "decodes_per_s": len(values) / out["decode_s"], "rounds_full_walk": rounds})
-    log(f"  par_decode: 16 values in [0, 2^44) at {batch} lanes a round ({rounds} rounds a full walk) in "
-        f"{out['decode_s']:.2f} s, {out['decodes_per_s']:.2f} decodes a second; negative range_min "
-        f"({neg}) in {out['negative_s']:.2f} s; out of range -> None, every round, in {out['out_of_range_s']:.2f} s")
+    group = -(-K.K8_FILL_LANES // batch)
+    if out["out_of_range_launches"] > -(-rounds // group) + 1:
+        raise AssertionError(f"a full walk of {rounds} rounds took {out['out_of_range_launches']} K8 launches")
+    out["decode_group_split_ms"] = ecdlp_split(split["decode"], group_spans, "ecdlp.decode.group")
+    g = out["decode_group_split_ms"]
+    g["python"] = g["group"] - g["k8_wait"] - g["pull"] - g["lookup"] - g["confirm"]
+    out["decode_groups"] = split["decode"]["span_counts"].get("ecdlp.decode.group", 0)
+    out.update({"l1": l1, "batch": batch, "rounds_a_launch": group, "decodes_per_s": len(values) / out["decode_s"],
+                "rounds_full_walk": rounds})
+    log(f"  par_decode: 16 values in [0, 2^44) at {batch} lanes a round, {group} rounds a launch ({rounds} rounds "
+        f"a full walk) in {out['decode_s']:.3f} s, {out['decodes_per_s']:.2f} decodes a second, "
+        f"{out['decode_launches']} K8 launches over {out['decode_groups']} groups; negative range_min ({neg}) in "
+        f"{out['negative_s']:.3f} s; out of range -> None, every round, in {out['out_of_range_s']:.3f} s and "
+        f"{out['out_of_range_launches']} launches")
+    log(f"  one decode group ({group} rounds), mean ms: {json.dumps(g)}")
     return launches["add_compress"], recs["add_compress"], out
 
 
@@ -1378,7 +1429,7 @@ def dcn_path(txs, ledger) -> dict:
     return out
 
 
-def pippenger_path(rng: random.Random, txs, accel, n: int = 65_536):
+def pippenger_path(rng: random.Random, txs, accel, clock_hz, n: int = 65_536):
     """Phase 11c.  Returns (K9's and K10's launches, their Recorders, the
     phase's figures, {name: (mismatches, max_abs_err)} of the other launches
     held to their plain versions)."""
@@ -1398,13 +1449,18 @@ def pippenger_path(rng: random.Random, txs, accel, n: int = 65_536):
     got, launches, syncs, recs = counted(lambda: engine.msm_points(scal, pts), names)
     expect_launched(f"MsmEngine.msm_points, {n} points", launches, names,
                     [k for k in launches if k not in names])
-    if launches["bucket_sums"] != 1 or launches["window_sums"] != 1:
-        raise AssertionError(f"msm_points must launch K9 and K10 once each: {launches}")
+    passes = K.k9_passes(n)
+    if launches["bucket_sums"] != passes or launches["window_sums"] != 1:
+        raise AssertionError(f"msm_points must launch K9's {passes} passes and K10 once: {launches}")
     if got.compress() != accel.msm(scal, pts).compress():
         raise AssertionError("MsmEngine.msm_points disagrees with accel.msm")
     log(f"  msm_points at {n} points, window 13: equal to accel.msm; synchronising calls {syncs}")
 
     errs = {name: [] for name in names}
+    k9_args = recs["bucket_sums"].args
+    errs["bucket_sums"].append(expect_equal(f"K9 ({passes} passes), msm_points at {n} points",
+                                            K.bucket_sums(*k9_args), K.bucket_sums_plain(*k9_args)))
+    k9 = k9_figures(k9_args, clock_hz)
     small, small_launches, _, small_recs = counted(lambda: engine.msm_points(scal[:64], pts[:64]), names,
                                                    keep_all=True)
     if small != multiscalar_mul(scal[:64], pts[:64]):
@@ -1418,18 +1474,81 @@ def pippenger_path(rng: random.Random, txs, accel, n: int = 65_536):
     order, offsets = bucket_runs(decompose_digits(skew, 13), 13, accel.device)
     rows = engine.curve.from_points(pts[:skew_n])
     rows = torch.stack(rows, dim=1).to(torch.int32).contiguous()
+    before = K.launches["bucket_sums"]
     buckets = K.bucket_sums(rows, order, offsets)
-    errs["bucket_sums"].append(expect_equal(f"K9, {skew_n} lanes, one bucket a window holding {skew_n - 2}",
-                                            buckets, K.bucket_sums_plain(rows, order, offsets)))
+    if K.launches["bucket_sums"] - before != K.k9_passes(skew_n):
+        raise AssertionError(f"K9 on {skew_n} lanes must run {K.k9_passes(skew_n)} passes")
+    errs["bucket_sums"].append(expect_equal(f"K9 ({K.k9_passes(skew_n)} passes), {skew_n} lanes, one bucket a "
+                                            f"window holding {skew_n - 2}", buckets,
+                                            K.bucket_sums_plain(rows, order, offsets)))
+    skew_k9 = k9_figures((rows, order, offsets), clock_hz)
     total = K.window_sums(buckets)
     errs["window_sums"].append(expect_equal("K10 on those buckets", total, K.window_sums_plain(buckets)))
     if bytes(K.compress(total).cpu().numpy()[0]) != multiscalar_mul(skew, pts[:skew_n]).compress():
         raise AssertionError("K9 and K10 disagree with pyref when one bucket holds most lanes")
     out = {"points": n, "window": 13, "msm_points_ms": host_ms(lambda: engine.msm_points(scal, pts)),
-           "accel_msm_ms": host_ms(lambda: accel.msm(scal, pts))}
+           "accel_msm_ms": host_ms(lambda: accel.msm(scal, pts)), "k9": k9, "k9_skewed": skew_k9}
     log(f"  msm_points at {n} points: {out['msm_points_ms']:.1f} ms a call, accel.msm {out['accel_msm_ms']:.1f} ms "
         f"(host clock, median of 3, host decomposition and point rows included)")
     return ({k: launches[k] for k in names}, recs, out, {k: worst(*v) for k, v in errs.items()})
+
+
+def pass_ms(fn, kernel: str, launches: int, reps: int = 5) -> list[float] | None:
+    """Device ms of each of the ``launches`` launches of the CUDA function
+    ``kernel`` that one call of ``fn`` makes, in order (torch.profiler, mean
+    over ``reps`` calls); None when three traces in a row dropped one."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    named = re.compile(rf"\b{kernel}\b")
+    fn()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        ev = sorted((e.time_range.start, e.time_range.end - e.time_range.start) for e in prof.events()
+                    if e.device_type == torch.autograd.DeviceType.CUDA and named.search(e.name))
+        if len(ev) == reps * launches:
+            return [statistics.mean(us for _, us in ev[p::launches]) / 1e3 for p in range(launches)]
+    log(f"  the profiler dropped launches of {kernel} in three traces: CUDA events around whole calls instead")
+    return None
+
+
+def call_device_ms(fn, kernel: str, launches: int) -> tuple[float, list[float] | None]:
+    """(device ms of one call of ``fn``, its launches' ms or None): the sum
+    of ``pass_ms``, or CUDA events around single calls (``time_ms``), which
+    count the host's launch gaps too."""
+    ms = pass_ms(fn, kernel, launches)
+    return (sum(ms), ms) if ms is not None else (time_ms(fn), None)
+
+
+def k9_figures(args, clock_hz) -> dict:
+    """K9 on ``args``: its passes and each pass's threads, the longest walk
+    a thread makes (at most 2^K9_K lanes: a split run's blocks but its
+    first hold exactly 2^K9_K), each pass's device ms and their total
+    against the bound."""
+    from xelis_he_tpu_torch.ops import kernels as K
+
+    rows, order, offsets = args
+    plan = list(K.bucket_passes(offsets, rows.shape[0]))
+    threads = [int(first[-1]) for _, _, first in plan]
+    walk = 0
+    for _, length, first in plan:
+        blocks = first[1:] - first[:-1]
+        whole = length[blocks == 1]  # runs one thread walks whole
+        walk = max(walk, int(whole.max()) if whole.numel() else 0, (1 << K.K9_K) if bool((blocks >= 2).any()) else 0)
+    if walk > 1 << K.K9_K:
+        raise AssertionError(f"a thread of K9 walks {walk} lanes, more than 2^{K.K9_K}")
+    total, ms = call_device_ms(lambda: K.bucket_sums(*args), KERNELS["bucket_sums"][2], len(plan))
+    shape, bound_ms, bound_by = bound("bucket_sums", args, clock_hz)
+    out = {"k": K.K9_K, "passes": len(plan), "threads": threads, "longest_walk": walk, "pass_ms": ms,
+           "ms": total, "bound_ms": bound_ms, "bound_by": bound_by, "share_of_bound": bound_ms / total,
+           "shape": shape}
+    log(f"  K9 at {shape}: {len(plan)} passes of {threads} threads, longest walk {walk} lanes (2^k = "
+        f"{1 << K.K9_K}); device ms {ms and [round(x, 4) for x in ms]}, total {total:.4f} against a bound of "
+        f"{bound_ms:.5f} ms ({bound_by}): {100 * bound_ms / total:.2f}%")
+    return out
 
 
 def trace_verify(txs, ledger, accel) -> dict:
@@ -1594,11 +1713,11 @@ def work(name, args) -> tuple[str, int, int]:
         set_bits = set_bits_253(args[1])
         items, nbytes, shape = n, n * (288 + 32 + 288), f"{n} lanes, {set_bits} set bits"
     elif name == "add_compress":
-        a, b, sums_from = args
-        n = max(a.shape[0], b.shape[0])
-        kept = 0 if sums_from is None else n - sums_from
-        items, nbytes = n, (a.shape[0] + b.shape[0] + kept) * 288 + n * 32
-        shape = f"{n} lanes ({a.shape[0]} + {b.shape[0]} rows, {kept} sums kept)"
+        a, b, sums_from = (*args, None)[:3]  # the build's launches keep no sums
+        R, n = a.shape[0], b.shape[0]
+        kept = 0 if sums_from is None else R * (n - sums_from)
+        items, nbytes = R * n, (R + n + kept) * 288 + R * n * 32
+        shape = f"{R * n} lanes ({R} x {n} rows, {kept} sums kept)"
     elif name == "bucket_sums":
         rows, order, offsets = args
         n, w, nb = rows.shape[0], order.shape[0], offsets.shape[1] - 1
@@ -1649,13 +1768,17 @@ def kernel_line(recorders, launches, errs, clock_hz, peak):
         args = recorders[name].args
         kernel, plain = getattr(K, name), getattr(K, name + "_plain")
         out_k, out_p = kernel(*args), plain(*args)
-        if isinstance(out_k, tuple):
+        if isinstance(out_k, tuple):  # K8's sums are None where a launch keeps none
             res = worst(*(expect_equal(f"{name} (main-path shape) {i}", a, b)
-                          for i, (a, b) in enumerate(zip(out_k, out_p))))
+                          for i, (a, b) in enumerate(zip(out_k, out_p)) if a is not None or b is not None))
         else:
             res = expect_equal(f"{name} (main-path shape)", out_k, out_p)
         n_bad, err = worst(res, errs[name])
-        ms, one_call_ms = device_ms(lambda: kernel(*args), KERNELS[name][2]), call_ms(lambda: kernel(*args))
+        if name == "bucket_sums":  # one call is its passes: their device time together
+            ms = call_device_ms(lambda: kernel(*args), KERNELS[name][2], K.k9_passes(args[0].shape[0]))[0]
+        else:
+            ms = device_ms(lambda: kernel(*args), KERNELS[name][2])
+        one_call_ms = call_ms(lambda: kernel(*args))
         plain_ms = time_ms(lambda: plain(*args), reps=3)  # seconds each at these shapes
         shape, bound_ms, bound_by = bound(name, args, clock_hz)
         peak_ms = bound(name, args, clock_hz, peak)[1]
@@ -1859,6 +1982,30 @@ def kernels_from(root: pathlib.Path, seed: int) -> dict:
         else:
             d = digest(K.compress(res))
         out[f"{name} at {shape}"] = {"ms": device_ms(fn, KERNELS[name][2]), "call_ms": call_ms(fn, 100), "digest": d}
+    # K8 on 16 decode rounds of 8,193 lanes (this tree's grid takes them in
+    # one launch, an earlier tree's one row a launch: the same encodings),
+    # and K9 on the window-13 digits of 65,536 scalars; ms is the device
+    # time of the launches one call makes
+    from xelis_he_tpu_torch.ops.msm import bucket_runs, decompose_digits
+
+    cursors, offsets_8193 = pick(pool, 16), pick(pool, 8193)
+    grid = hasattr(K, "K8_FILL_LANES")
+
+    def k8_rounds():
+        if grid:
+            return K.add_compress(cursors, offsets_8193, 8192)[0].reshape(-1, 32)
+        return torch.cat([K.add_compress(cursors[r : r + 1].contiguous(), offsets_8193, 8192)[0] for r in range(16)])
+
+    k9_rows = pick(pool, 65_536)
+    k9_order, k9_offsets = bucket_runs(decompose_digits([rng.randrange(L) for _ in range(65_536)], 13), 13, device)
+    for name, shape, fn in (("add_compress", "16 rounds of 8193 lanes", k8_rounds),
+                            ("bucket_sums", "65536 lanes, window 13",
+                             lambda: K.bucket_sums(k9_rows, k9_order, k9_offsets))):
+        before = K.launches[name]
+        res = fn()
+        per_call = K.launches[name] - before
+        out[f"{name} at {shape}"] = {"ms": device_ms(fn, KERNELS[name][2]) * per_call, "launches": per_call,
+                                     "call_ms": call_ms(fn, 10), "digest": digest(res)}
     torch.cuda.synchronize()
     for name in BUILD_FIGURES:
         fn_name, lib = KERNELS[name][2], LIBS[name]
@@ -1876,7 +2023,7 @@ def main() -> int:
     ap.add_argument("--iters", type=int, default=3, help="timed verifies of the block")
     ap.add_argument("--seed", type=int, default=1, help="seed of the kernel inputs")
     ap.add_argument("--kernels-from", type=pathlib.Path, default=None, metavar="DIR",
-                    help="only time K1-K7 of the port checked out at DIR")
+                    help="only time K1-K9 of the port checked out at DIR")
     args = ap.parse_args()
 
     import torch
@@ -1907,17 +2054,17 @@ def main() -> int:
         for line in v.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  {k}: {line.strip()}")
-    # K1 and K4 buy resident warps with registers: their figures, and no
-    # spills; K6's and K7's figures beside them
+    # K1, K4 and K8 buy resident warps with registers: their figures, and no
+    # spills; K6's, K7's, K9's and K10's figures beside them
     builds = {}
     block_threads = {"decompress": 128, "compress": 128, "windowed_lanes_k8_fe15": 32 * K.K6_SPLIT,
-                     "daa_lanes": 32, "add_compress": 128, "bucket_sums": 128, "window_sums": K.K10_THREADS}
+                     "daa_lanes": 32, "add_compress": 32, "bucket_sums": 128, "window_sums": K.K10_THREADS}
     for name in BUILD_FIGURES:
         threads = block_threads[name]
         info = ptxas_info(_build.ptxas_log[LIBS[name]], KERNELS[name][2])
         info["resident_blocks"] = resident_blocks(info["registers"], threads, info["smem"])
         log(f"  {name}: {json.dumps(info)} at {threads} threads a block")
-        if name in ("decompress", "compress") and (info["spill_stores"] or info["spill_loads"]):
+        if name in ("decompress", "compress", "add_compress") and (info["spill_stores"] or info["spill_loads"]):
             raise AssertionError(f"{name}: ptxas spills registers")
         builds[name] = info
     # which instruction a wide multiply-add is (K11's two forms), and the
@@ -1963,7 +2110,7 @@ def main() -> int:
     log("multi-process accept (two processes on the card, gloo):")
     dcn = dcn_path(*block)
     log("Pippenger (MsmEngine.msm_points, K9 and K10):")
-    pip_launches, pip_recs, pippenger, pip_errs = pippenger_path(random.Random(args.seed + 4), block[0], accel)
+    pip_launches, pip_recs, pippenger, pip_errs = pippenger_path(random.Random(args.seed + 4), block[0], accel, clock_hz)
     launches.update(pip_launches)
     recorders.update(pip_recs)
     errs.update(pip_errs)

@@ -82,8 +82,10 @@ def test_par_decode_matches_the_jax_package(accel, m, range_min, range_max):
 
 
 def test_par_decode_rounds_go_through_add_compress(accel, monkeypatch):
-    """Each round is one K8 call on batch + 1 lanes (the offsets and the big
-    step), the cursor broadcast, only the last lane's sum kept."""
+    """A group of rounds is one K8 call: the group's cursors against batch
+    + 1 columns (the offsets and the group's big step), only the last
+    column's sums kept.  Here all 4 rounds fit one group; progress is
+    reported once a round."""
     seen = []
 
     def spy(a, b, sums_from=None, fn=K.add_compress):
@@ -94,7 +96,42 @@ def test_par_decode_rounds_go_through_add_compress(accel, monkeypatch):
     progress = []
     args = ECDLPArguments(0, 1 << 14, progress_fn=progress.append)
     assert par_decode(TABLES, mul_base(1 << 15), args, accel=accel, batch=16) is None
-    assert seen == [(1, 17, 16)] * 4 and progress[-1] == 1.0
+    assert seen == [(4, 17, 16)] and progress == [0.25, 0.5, 0.75, 1.0]
+
+
+@pytest.mark.parametrize("m, range_min, range_max", [
+    (9_000, 0, 1 << 16),  # round 2 of the group of rounds 0-3
+    (40_000, 0, 1 << 16),  # round 1 of the third group
+    ((1 << 16) - 1, 0, 1 << 16),  # the last lane of the last round
+    (1 << 17, 0, 1 << 16),  # out of range: every round, None
+    (scalars.L - 10_000, -30_000, 30_000),  # negative, round 0 of the second group
+])
+def test_par_decode_groups_match_the_jax_package(accel, monkeypatch, m, range_min, range_max):
+    """batch=16 with the card's fill cut to 64 lanes: 4 rounds a launch over
+    16 rounds (15 for the negative range, whose last group is short).  The
+    value, the progress calls and the launches are those of the JAX
+    package's one round a dispatch, and the next group is dispatched before
+    this one is looked up."""
+    monkeypatch.setattr(K, "K8_FILL_LANES", 64)
+    want_progress, progress = [], []
+    want = jax_ecdlp.par_decode(JAX_TABLES, jax_ecdlp.mul_base(m),
+                                jax_ecdlp.ECDLPArguments(range_min, range_max, progress_fn=want_progress.append),
+                                accel=JaxAccelerator("numpy", min_size=4), batch=16)
+    seen = []
+
+    def spy(a, b, sums_from=None, fn=K.add_compress):
+        seen.append(a.shape[0])
+        return fn(a, b, sums_from)
+
+    monkeypatch.setattr(K, "add_compress", spy)
+    got = par_decode(TABLES, mul_base(m), ECDLPArguments(range_min, range_max, progress_fn=progress.append),
+                     accel=accel, batch=16)
+    assert got == want and progress == want_progress
+    rounds = -(-((range_max - range_min + 255) // 256) // 16)
+    assert sum(seen) >= len(progress) and all(r == 4 for r in seen[:-1]) and seen[-1] <= 4
+    assert len(seen) == min(-(-rounds // 4), len(progress) // 4 + 2)
+    if got is None:
+        assert sum(seen) == rounds and progress[-1] == 1.0
 
 
 def test_par_decode_needs_a_card_without_an_accelerator(monkeypatch):
@@ -113,10 +150,21 @@ def test_device_built_table_equals_host_and_jax_tables(accel):
     _same_table(dev, jax_ecdlp.ECDLPTables.build(12))
 
 
-def test_device_build_chains_chunks(accel):
-    """Chunks of 64 at l1 = 8: four K8 calls, each adding the step to the
-    previous chunk's sums, give the host's table."""
+def test_device_build_chains_chunks(accel, monkeypatch):
+    """Chunks of 64 at l1 = 8: K8's doubling chains make the baby steps
+    j*G (j < 64, six calls) and the starts r*64*G (r < 4, two calls), each
+    call the rows so far and the step against the step; then one call of
+    the 4 x 64 grid gives the host's table."""
+    seen = []
+
+    def spy(a, b, sums_from=None, fn=K.add_compress):
+        seen.append((a.shape[0], b.shape[0], sums_from))
+        return fn(a, b, sums_from)
+
+    monkeypatch.setattr(K, "add_compress", spy)
     _same_table(ECDLPTables.build(8, accel=accel, chunk=64), TABLES)
+    chain = [(m + 1, 1, 0) for m in (1, 2, 4, 8, 16, 32)] + [(2, 1, 0), (3, 1, 0)]
+    assert seen == chain + [(4, 64, None)]
 
 
 def test_table_roundtrip(tmp_path: pathlib.Path):
@@ -153,15 +201,18 @@ def test_decrypt_then_decode():
 
 
 def test_add_compress_plain_matches_pyref():
-    """K8's plain version on pyref points, the identity among them: each
-    side broadcast in turn; encodings and sums against pyref's addition."""
+    """K8's plain version on pyref points, the identity among them: the
+    R x n grid, then one row against every column and every row against one
+    column; encodings and sums against pyref's addition."""
     pts = [mul_base(s) for s in (1, 2, 3, 12345, scalars.L - 1)] + [IDENTITY]
     acc = Accelerator(device="cpu")
     a = acc._to_device_points(pts)
     b = acc._to_device_points(pts[::-1])
-    for ta, tb, want in ((a, b, [p + q for p, q in zip(pts, pts[::-1])]),
-                         (a[2:3], b, [pts[2] + q for q in pts[::-1]]),
-                         (a, b[:1], [p + pts[-1] for p in pts])):
+    for ta, tb in ((a, b[:4]), (a[2:3], b), (a, b[:1])):
+        ra, rb = (pts[:ta.shape[0]] if ta.shape[0] > 1 else [pts[2]]), pts[::-1][:tb.shape[0]]
+        want = [[p + q for q in rb] for p in ra]
         enc, sums = K.add_compress(ta.contiguous(), tb.contiguous(), 1)
-        assert [bytes(r) for r in enc.numpy()] == [w.compress() for w in want]
-        assert [bytes(r) for r in K.compress(sums).numpy()] == [w.compress() for w in want[1:]]
+        assert enc.shape == (len(ra), len(rb), 32) and sums.shape == (len(ra), len(rb) - 1, 4, 18)
+        assert [[bytes(x) for x in row] for row in enc.numpy()] == [[w.compress() for w in row] for row in want]
+        got_sums = K.compress(sums.reshape(-1, 4, 18)).numpy()
+        assert [bytes(x) for x in got_sums] == [w.compress() for row in want for w in row[1:]]

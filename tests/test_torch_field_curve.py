@@ -279,3 +279,14 @@ def test_curve_eq_and_cneg_match_numpy_curve():
     for a, b in zip(got_np, got_t):
         _same(a, b)
     assert _enc(TC.to_points(got_t)) == _enc([-p if c else p for p, c in zip(PTS, cond)])
+
+
+def test_field_defaults_to_the_card(monkeypatch):
+    """Field() runs on the card and raises without one, as Accelerator()
+    does; Field("cpu") names the CPU and works there."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Field()
+    cpu = Field("cpu")
+    assert cpu.device == torch.device("cpu") and cpu.ONE.device.type == "cpu"
+    assert Field.to_ints(cpu.canon(cpu.add(cpu.from_ints([P - 1, 7]), cpu.from_ints([6, 1])))) == [5, 8]

@@ -449,7 +449,7 @@ def test_wrappers_check_shapes_and_devices():
         K.windowed_lanes_k8_fe15(torch.zeros((8, 4, 4, 18), dtype=torch.int32),
                                  torch.zeros((8, 64, 4), dtype=torch.int32))
     with pytest.raises(ValueError):
-        K.add_compress(torch.zeros((3, 4, 18), dtype=torch.int32), torch.zeros((2, 4, 18), dtype=torch.int32))
+        K.add_compress(torch.zeros((3, 4, 18), dtype=torch.int32), torch.zeros((2, 4, 17), dtype=torch.int32))
     with pytest.raises(ValueError):
         K.add_compress(torch.zeros((3, 4, 18), dtype=torch.int32), torch.zeros((1, 4, 18), dtype=torch.int32), 4)
     with pytest.raises(ValueError):
@@ -494,10 +494,10 @@ def shim(tmp_path_factory):
     lib.shim_fe15.argtypes = [vp, vp, vp, vp, vp, i]
     lib.shim_square.argtypes = [vp, vp, vp, i]
     lib.shim_reduce64.argtypes = [vp, vp, i]
-    lib.shim_add_compress.argtypes = [vp, vp, vp, vp, i, i, i, i]
-    lib.shim_bucket_sums.argtypes = [vp, vp, vp, vp, i, i, i]
+    lib.shim_add_compress.argtypes = [vp, vp, vp, vp, i, i, i]
+    lib.shim_bucket_pass.argtypes = [vp, vp, vp, vp, vp, vp, i, vp, vp]
     lib.shim_window_sums.argtypes = [vp, vp, i, i]
-    lib.shim_k9_levels.restype = i
+    lib.shim_k9_k.restype = i
     lib.shim_k10_threads.restype = i
     lib.shim_k2_split.restype = i
     lib.shim_k3_sub.restype = i
@@ -769,51 +769,57 @@ def test_cuh_fe15_tier_matches_pyref_field(shim):
 
 def _k8_cases():
     """K8's addends: host points (Z != 1), the identity and the 4-torsion
-    cosets of the K4 edge set (Z scaled) on one side, the same reversed on
-    the other, each side in turn a broadcast row.  Yields (a rows, b rows,
-    a points, b points) with the points the rows encode as."""
+    cosets of the K4 edge set (Z scaled) as the columns b, the same reversed
+    as the rows a; an R x n grid (11 rows of them against all 29), one row
+    against every column (1 x n) and every row against one column (R x 1).
+    Yields (a rows, b rows, a points, b points) with the points the rows
+    encode as."""
     tors, tors_pts = _torsion_rows()
     rows = np.concatenate([_rows(HOST_PTS).astype(np.int32), tors])
     pts = HOST_PTS + tors_pts
     rev_rows, rev_pts = np.ascontiguousarray(rows[::-1]), pts[::-1]
-    yield rows, rev_rows, pts, rev_pts
-    yield rows[3:4].copy(), rev_rows, pts[3:4] * len(pts), rev_pts
-    yield rows, rev_rows[-1:].copy(), pts, rev_pts[-1:] * len(pts)
+    yield np.ascontiguousarray(rev_rows[5:16]), rows, rev_pts[5:16], pts
+    yield rev_rows[3:4].copy(), rows, rev_pts[3:4], pts
+    yield rev_rows, rows[-1:].copy(), rev_pts, pts[-1:]
 
 
 @pytest.mark.parametrize("case", range(3))
 def test_add_compress_plain_matches_numpy_curve_and_pyref(case):
-    """K8's plain version against the numpy curve's add and compress (the
-    JAX package's ECDLP rounds) and pyref, broadcast on either side or
-    neither, with every sum kept and with only the last."""
+    """K8's plain version on its R x n grid against the numpy curve's add and
+    compress (the JAX package's ECDLP rounds) over the same lanes and
+    pyref, with every column's sums kept, only the last column's and
+    none."""
     a, b, a_pts, b_pts = list(_k8_cases())[case]
-    n = max(a.shape[0], b.shape[0])
+    R, n = a.shape[0], b.shape[0]
     nc = numpy_curve()
-    coords = [tuple(np.broadcast_to(r.view(np.uint32)[:, c, :], (n, 18)) for c in range(4)) for r in (a, b)]
-    want_sum = nc.add(*coords)
+    lanes = [np.repeat(a, n, axis=0), np.tile(b, (R, 1, 1))]  # lane r n + j: a[r], b[j]
+    want_sum = nc.add(*(tuple(x.view(np.uint32)[:, c, :] for c in range(4)) for x in lanes))
     want_enc = np.asarray(nc.compress(want_sum))
-    assert [bytes(r) for r in want_enc] == _enc([p + q for p, q in zip(a_pts, b_pts)])
+    assert [bytes(r) for r in want_enc] == _enc([p + q for p in a_pts for q in b_pts])
     ta, tb = torch.from_numpy(a), torch.from_numpy(b)
+    want_rows = _canon_rows(want_sum).reshape(R, n, 4, 18)
     for sums_from in (0, n - 1, None):
         enc, sums = K.add_compress(ta, tb, sums_from)
-        assert np.array_equal(enc.numpy(), want_enc)
+        assert np.array_equal(enc.numpy(), want_enc.reshape(R, n, 32))
         if sums_from is None:
             assert sums is None
         else:
-            assert np.array_equal(sums.numpy(), _canon_rows(want_sum)[sums_from:])
+            assert np.array_equal(sums.numpy(), want_rows[:, sums_from:])
 
 
 def test_cuh_add_compress_matches_plain(shim):
-    """K8's body built for the host against its plain version, rows and
-    encodings, in each of the broadcasts; its field operations a lane are
-    FIELD_MULS / FIELD_SQS["add_compress"]."""
+    """K8's body and lane indexing built for the host against its plain
+    version, rows and encodings, on each grid with the sums of the columns
+    from 1 on; its field operations a lane are FIELD_MULS /
+    FIELD_SQS["add_compress"]."""
     for a, b, _, _ in _k8_cases():
-        n = max(a.shape[0], b.shape[0])
-        enc, sums = np.zeros((n, 32), np.uint8), np.zeros((n - 2, 4, 18), np.int32)
+        R, n = a.shape[0], b.shape[0]
+        sums_from = min(1, n - 1)
+        enc, sums = np.zeros((R, n, 32), np.uint8), np.zeros((R, n - sums_from, 4, 18), np.int32)
         shim.shim_reset_mul_count()
-        shim.shim_add_compress(_ptr(a), _ptr(b), _ptr(enc), _ptr(sums), a.shape[0], b.shape[0], 2, n)
-        assert _counts(shim) == (K.FIELD_MULS["add_compress"] * n, K.FIELD_SQS["add_compress"] * n)
-        want_enc, want_sums = K.add_compress_plain(torch.from_numpy(a), torch.from_numpy(b), 2)
+        shim.shim_add_compress(_ptr(a), _ptr(b), _ptr(enc), _ptr(sums), R, n, sums_from)
+        assert _counts(shim) == (K.FIELD_MULS["add_compress"] * R * n, K.FIELD_SQS["add_compress"] * R * n)
+        want_enc, want_sums = K.add_compress_plain(torch.from_numpy(a), torch.from_numpy(b), sums_from)
         assert np.array_equal(enc, want_enc.numpy())
         assert np.array_equal(sums, want_sums.numpy())
 
@@ -864,19 +870,74 @@ def test_bucket_sums_plain_is_the_jax_packages_scan(case):
         assert np.array_equal(got[w], want)
 
 
+def _shim_k9(shim, rows, order, offsets):
+    """K9's passes through the host build, on the plan of K.bucket_passes:
+    (the bucket sums, each pass's threads).  The last pass splits no run."""
+    W, nb, n = order.shape[0], offsets.shape[1] - 1, rows.shape[0]
+    out = np.zeros((W, nb - 1, 4, 18), np.int32)
+    plan = list(K.bucket_passes(offsets, n))
+    assert len(plan) == K.k9_passes(n)
+    assert int((plan[-1][2][1:] - plan[-1][2][:-1]).max()) <= 1
+    src, threads = None, []
+    for p, (start, length, first) in enumerate(plan):
+        threads.append(int(first[-1]))
+        dst = np.zeros((max(threads[-1], 1), K.GE_WORDS), np.int32)
+        arrays = [np.ascontiguousarray(t.numpy()) for t in (start, length, first)]
+        shim.shim_bucket_pass(_ptr(rows), _ptr(order.numpy()) if p == 0 else None, None if p == 0 else _ptr(src),
+                              *(_ptr(a) for a in arrays), W * (nb - 1), _ptr(out), _ptr(dst))
+        src = dst
+    return out, threads
+
+
 @pytest.mark.parametrize("case", range(2))
 def test_cuh_bucket_sums_matches_plain(shim, case):
-    """K9's body built for the host, one bucket at a time: the plain
+    """K9's passes built for the host, thread by thread: the plain
     version's rows, and the run's length - 1 additions a bucket."""
-    assert shim.shim_k9_levels() == K.K9_LEVELS
+    assert shim.shim_k9_k() == K.K9_K
     rows, order, offsets = _k9_inputs(*list(_pippenger_cases())[case])
-    W, nb = order.shape[0], offsets.shape[1] - 1
-    out = np.zeros((W, nb - 1, 4, 18), np.int32)
     shim.shim_reset_mul_count()
-    shim.shim_bucket_sums(_ptr(rows), _ptr(order.numpy()), _ptr(offsets.numpy()), _ptr(out), W, rows.shape[0],
-                          PIP_WINDOW)
+    out, _ = _shim_k9(shim, rows, order, offsets)
     assert _counts(shim) == (K.FIELD_MULS["bucket_sums"] * K.bucket_additions(offsets), 0)
     assert np.array_equal(out, K.bucket_sums(torch.from_numpy(rows), order, offsets).numpy())
+
+
+K9_BLOCK = 1 << K.K9_K
+K9_RUNS = [1, 2, K9_BLOCK - 1, K9_BLOCK, K9_BLOCK + 1, 3 * K9_BLOCK + 5]
+
+
+def _k9_runs(runs, c=3):
+    """One window of 2^c buckets whose buckets 1.. hold ``runs`` lanes (two
+    lanes of digit 0 first, the rest empty), over points mul_base(i + 5) in
+    a shuffled order: (rows, order, offsets)."""
+    counts = [2, *runs] + [0] * ((1 << c) - 1 - len(runs))
+    n = sum(counts)
+    offsets = torch.from_numpy(np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)[None])
+    order = torch.from_numpy(np.random.default_rng(n).permutation(n).astype(np.int32)[None])
+    rows = np.ascontiguousarray(_rows([mul_base(i + 5) for i in range(n)]).view(np.int32))
+    return rows, order, offsets
+
+
+@pytest.mark.parametrize("runs", [[r] for r in K9_RUNS] + [[1, 0, K9_BLOCK + 1, 2], [8 * K9_BLOCK * K9_BLOCK]],
+                         ids=[f"run{r}" for r in K9_RUNS] + ["mixed", "all-but-two"])
+def test_cuh_bucket_passes_match_plain_at_run_lengths(shim, runs):
+    """K9's passes built for the host against the plain version on runs of
+    1, 2, 2^k - 1, 2^k, 2^k + 1 and 3 2^k + 5 lanes (each beside an empty
+    bucket and digit 0's two lanes), a mix, and one bucket that holds every
+    lane but two (three passes or more): rows, the additions
+    (``bucket_additions``: a run's length - 1), and in every pass no run
+    longer than 2^k left to one thread."""
+    rows, order, offsets = _k9_runs(runs)
+    shim.shim_reset_mul_count()
+    out, threads = _shim_k9(shim, rows, order, offsets)
+    assert K.bucket_additions(offsets) == sum(max(r - 1, 0) for r in runs)
+    assert _counts(shim) == (K.FIELD_MULS["bucket_sums"] * K.bucket_additions(offsets), 0)
+    assert np.array_equal(out, K.bucket_sums(torch.from_numpy(rows), order, offsets).numpy())
+    for _, length, first in K.bucket_passes(offsets, rows.shape[0]):
+        blocks = first[1:] - first[:-1]
+        assert bool((length[blocks == 1] <= K9_BLOCK).all())  # a run one thread walks whole
+        assert bool((blocks[length > K9_BLOCK] >= 2).all())  # a longer one is split into blocks
+    if max(runs) > K9_BLOCK * K9_BLOCK:
+        assert len(threads) >= 3 and threads[1] > 1 and threads[2] >= 1
 
 
 @pytest.mark.parametrize("case", range(2))

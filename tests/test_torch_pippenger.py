@@ -84,3 +84,32 @@ def test_window_sum_matches_numpy_engine():
            NC.to_points(tuple(c[None] for c in want))[0].compress()]
     weighted = multiscalar_mul([int(x) for x in d], pts)
     assert enc == [weighted.compress()] * 2
+
+
+@pytest.mark.parametrize("skew", [False, True])
+def test_bucket_pass_plan_of_the_engines_windows(skew):
+    """K9's plan (ops.kernels.bucket_passes) on the engine's own runs at 600
+    lanes, window 8, with one scalar on all lanes but two when ``skew``:
+    pass 1 reads every lane of digits 1.. once; each later pass reads the
+    block sums the one before it wrote for the runs it split, and the last
+    pass splits nothing."""
+    from xelis_he_tpu_torch.ops import kernels as K
+    from xelis_he_tpu_torch.ops.msm import bucket_runs
+
+    scal, _ = _case(600)
+    if skew:
+        scal = [scal[3]] * 598 + [0, L - 1]
+    digits = decompose_digits(scal, 8)
+    _, offsets = bucket_runs(digits, 8, "cpu")
+    plan = list(K.bucket_passes(offsets, 600))
+    assert len(plan) == K.k9_passes(600)
+    start, length, first = plan[0]
+    assert int(length.sum()) == int((torch.from_numpy(digits) != 0).sum())
+    assert bool((first[1:] - first[:-1] >= 1).all())  # every bucket has a thread in pass 1
+    for (_, _, first_before), (start, length, first) in zip(plan, plan[1:]):
+        made = first_before[1:] - first_before[:-1]
+        split = made >= 2
+        assert torch.equal(length, torch.where(split, made, 0)) and torch.equal(start, first_before[:-1])
+    assert int((plan[-1][2][1:] - plan[-1][2][:-1]).max()) <= 1
+    if skew:
+        assert len(plan) >= 2 and int(plan[1][1].max()) >= 2

@@ -44,13 +44,14 @@ void shim_compress(const int32_t *rows, uint8_t *out, int n) {
   for (int i = 0; i < n; ++i) compress_one(out + 32 * i, rows + 72 * i);
 }
 
-// K8 as add_compress.cu runs it: a side of one row is broadcast; sums go out
-// for lanes i >= sums_from (none when sums is null)
-void shim_add_compress(const int32_t *a, const int32_t *b, uint8_t *enc, int32_t *sums, int a_rows, int b_rows,
-                       int sums_from, int n) {
-  for (int i = 0; i < n; ++i) {
-    int32_t *sum = (sums != nullptr && i >= sums_from) ? sums + 72 * (size_t)(i - sums_from) : nullptr;
-    add_compress_one(enc + 32 * i, sum, a + 72 * (size_t)(a_rows == 1 ? 0 : i), b + 72 * (size_t)(b_rows == 1 ? 0 : i));
+// K8 as add_compress.cu runs it: lane i of the R x n grid is a[i / n] +
+// b[i % n]; sums go out for the columns j >= sums_from (none when sums is
+// null)
+void shim_add_compress(const int32_t *a, const int32_t *b, uint8_t *enc, int32_t *sums, int R, int n,
+                       int sums_from) {
+  for (long long i = 0; i < (long long)R * n; ++i) {
+    const k8_lane l = add_compress_lane(i, a, b, sums, n, sums_from);
+    add_compress_one(enc + 32 * i, l.sum, l.a, l.b);
   }
 }
 
@@ -164,26 +165,16 @@ void shim_square(const uint32_t *f, uint32_t *out_mul, uint32_t *out_sq, int n) 
   }
 }
 
-// K9 as bucket_sums.cu runs it: one thread a bucket 1 .. 2^c - 1 of each window
-void shim_bucket_sums(const int32_t *rows, const int32_t *order, const int32_t *offsets, int32_t *out, int W,
-                      int N, int c) {
-  const int nb = 1 << c;
-  std::vector<ge> stack(K9_LEVELS);
-  for (int w = 0; w < W; ++w) {
-    const int32_t *off = offsets + (size_t)w * (nb + 1);
-    for (int b = 1; b < nb; ++b) {
-      ge sum;
-      if (off[b + 1] > off[b]) {
-        bucket_sum_one(sum, stack.data(), rows, order + (size_t)w * N, off[b], off[b + 1]);
-      } else {
-        ge_identity(sum);
-      }
-      ge_to_rows(out + 72 * ((size_t)w * (nb - 1) + b - 1), sum);
-    }
-  }
+// One pass of K9 as bucket_sums.cu runs it: threads 0 .. first[nbk] - 1 one
+// after the other, input point i rows[order[i]] (pass 1) or in[i]
+void shim_bucket_pass(const int32_t *rows, const int32_t *order, const ge *in, const long long *start,
+                      const long long *len, const long long *first, int nbk, int32_t *out, ge *blocks) {
+  ge stack[K9_K + 1];
+  const k9_input input = {rows, order, in};
+  for (long long t = 0; t < first[nbk]; ++t) bucket_block(out, blocks, stack, t, start, len, first, nbk, input);
 }
 
-int shim_k9_levels(void) { return K9_LEVELS; }
+int shim_k9_k(void) { return K9_K; }
 
 // K10 as window_sums.cu runs it: a window's T threads step by step between
 // the block's barriers, then the last block's Horner over the windows

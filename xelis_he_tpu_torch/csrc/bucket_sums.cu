@@ -9,19 +9,31 @@
 // order[w][offsets[w][b] .. offsets[w][b + 1]) of lane indices into rows.
 // Digit 0 (bucket 0) is never read: it adds nothing to the window's sum.
 //
-// One thread a bucket walks its run once (ed25519.cuh bucket_sum_one): the
-// run's length - 1 additions, in the order of the JAX package's scan, so the
-// plain version (ops/kernels.py bucket_sums_plain, that scan on the torch
-// Curve) gives the same canonical rows.  Empty buckets write the identity.
+// A launch is one pass (ed25519.cuh bucket_block): each bucket's run is cut
+// into blocks of 2^K9_K positions aligned in the scan's tree, one thread a
+// block, indexed by block through the prefix sum of the blocks a bucket
+// makes (ops/kernels.py bucket_passes, torch glue); a thread finds its bucket
+// by a binary search of that sum.  Pass 1 reads the lanes through order;
+// each later pass walks the block sums of the runs the previous pass split,
+// until every run is one block.  Empty buckets write the identity.  The
+// additions are the scan's, in its order, so the plain version
+// (ops/kernels.py bucket_sums_plain, that scan on the torch Curve) gives the
+// same canonical rows.
 //
 // Bound: operations, 9 field multiplications an addition, against 288 bytes
 // a lane read once, 4 a lane a window of order and 288 a bucket written.
 // At 65,536 lanes and c = 13 (20 windows of 8,191 buckets) a bucket holds ~8
-// lanes and the card is full (163,820 threads); the top window of scalars
-// below 2^253 has only 63 buckets of ~1,040 lanes each, and so has any window
-// whose digits repeat: its threads walk ~1,000 dependent additions while the
-// rest of the card waits.  A run split over several threads, with a second
-// pass over the partial sums, is the remedy; it is left for a later PR.
+// lanes; the top window of scalars below L holds ~32 buckets of ~2,048
+// lanes, which one thread a bucket walked alone while the card waited
+// (36.4 ms against a 0.130 ms bound, PERF.md).  Here no thread walks more
+// than 2^K9_K lanes: the long runs are 2,048 / 2^K9_K threads in pass 1 and
+// a few in the passes above.  A thread's stack is K9_K + 1 points in local
+// memory (a dynamic index): registers cannot index it, and in shared memory
+// (K9_K + 1) x 160 bytes a thread would cap an SM at 290 threads (K9_K = 4),
+// fewer than its 148 registers allow (384).  K9_K = 4, measured on an
+// NVIDIA H100 80GB HBM3 at 700 W (xelis_he_tpu_torch/scripts/bench_k8_k9.py,
+// device time of a call at 65,536 lanes of random scalars, window 13):
+// k = 3, 4, 5, 6 took 1.957, 1.572, 1.610, 1.921 ms in 6, 4, 4, 3 passes.
 
 #include <cuda_runtime.h>
 
@@ -31,35 +43,34 @@ using namespace xhe;
 
 constexpr int BLOCK = 128;
 
+// pass 1 (order set) reads rows[order[i]], later passes (order NULL) the
+// previous pass's block sums in[i]
 __global__ void __launch_bounds__(BLOCK)
     bucket_sums_kernel(const int32_t *__restrict__ rows, const int32_t *__restrict__ order,
-                       const int32_t *__restrict__ offsets, int32_t *__restrict__ out, int W, int N, int nb) {
-  const long t = (long)blockIdx.x * BLOCK + threadIdx.x;
-  const int per = nb - 1;  // buckets 1 .. nb - 1 of a window
-  if (t >= (long)W * per) return;
-  const int w = (int)(t / per), b = (int)(t % per) + 1;
-  const int32_t *off = offsets + (size_t)w * (nb + 1);
-  const int lo = off[b], hi = off[b + 1];
-  ge sum;
-  if (hi > lo) {
-    ge stack[K9_LEVELS];
-    bucket_sum_one(sum, stack, rows, order + (size_t)w * N, lo, hi);
-  } else {
-    ge_identity(sum);
-  }
-  ge_to_rows(out + 72 * (size_t)t, sum);
+                       const ge *__restrict__ in, const long long *__restrict__ start,
+                       const long long *__restrict__ len, const long long *__restrict__ first, int nbk,
+                       int32_t *__restrict__ out, ge *__restrict__ blocks) {
+  ge stack[K9_K + 1];
+  const k9_input input = {rows, order, in};
+  const long long total = first[nbk];
+#pragma unroll 1
+  for (long long t = (long long)blockIdx.x * BLOCK + threadIdx.x; t < total; t += (long long)gridDim.x * BLOCK)
+    bucket_block(out, blocks, stack, t, start, len, first, nbk, input);
 }
 
-// rows: (N, 4, 18) int32; order: (W, N) int32 lane indices sorted by digit;
-// offsets: (W, 2^c + 1) int32 run starts; out: (W, 2^c - 1, 4, 18) int32
-extern "C" int xhe_bucket_sums(const void *rows, const void *order, const void *offsets, void *out, int W,
-                               int N, int c, void *stream) {
-  if (c < 1 || c > 24 || N < 0) return (int)cudaErrorInvalidValue;
-  const int nb = 1 << c;
-  const long threads = (long)W * (nb - 1);
-  if (threads > 0) {
-    bucket_sums_kernel<<<(unsigned)((threads + BLOCK - 1) / BLOCK), BLOCK, 0, (cudaStream_t)stream>>>(
-        (const int32_t *)rows, (const int32_t *)order, (const int32_t *)offsets, (int32_t *)out, W, N, nb);
-  }
+// One pass over nbk buckets.  rows: (N, 4, 18) int32; order: (W, N) int32
+// lane indices sorted by digit, or NULL after pass 1; in: the previous
+// pass's block sums (40-word points), or NULL in pass 1; start, len: (nbk,)
+// int64 runs of the pass's input; first: (nbk + 1,) int64 first thread of
+// each bucket; threads: the launch's threads (it loops over first[nbk]);
+// out: (W, 2^c - 1, 4, 18) int32; blocks: the block sums this pass writes
+// (first[nbk] points at most), NULL in the last pass
+extern "C" int xhe_bucket_sums(const void *rows, const void *order, const void *in, const void *start,
+                               const void *len, const void *first, int nbk, int threads, void *out, void *blocks,
+                               void *stream) {
+  if (nbk < 1 || threads < 1 || (order == nullptr) == (in == nullptr)) return (int)cudaErrorInvalidValue;
+  bucket_sums_kernel<<<(threads + BLOCK - 1) / BLOCK, BLOCK, 0, (cudaStream_t)stream>>>(
+      (const int32_t *)rows, (const int32_t *)order, (const ge *)in, (const long long *)start,
+      (const long long *)len, (const long long *)first, nbk, (int32_t *)out, (ge *)blocks);
   return (int)cudaGetLastError();
 }

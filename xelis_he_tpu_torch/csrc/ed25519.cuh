@@ -871,6 +871,25 @@ static XHE_HD void add_compress_one(uint8_t *out, int32_t *sum_rows, const int32
   fe_to_bytes(out, s);
 }
 
+// K8's lane i of an R x n grid, (r, j) = (i / n, i % n): its addends a[r]
+// and b[j], and where its sum goes (column j >= sums_from: slot
+// r (n - sums_from) + j - sums_from of sums; otherwise nowhere)
+struct k8_lane {
+  const int32_t *a, *b;
+  int32_t *sum;
+};
+
+static XHE_HD k8_lane add_compress_lane(long long i, const int32_t *a, const int32_t *b, int32_t *sums, int n,
+                                        int sums_from) {
+  const long long r = i / n;
+  const int j = (int)(i - r * n);
+  k8_lane l;
+  l.a = a + 72 * r;
+  l.b = b + 72 * (size_t)j;
+  l.sum = (sums != nullptr && j >= sums_from) ? sums + 72 * (r * (n - sums_from) + j - sums_from) : nullptr;
+  return l;
+}
+
 // One node of the pairwise tree over a power-of-two run of points: lane i + h
 // onto lane i.  K3's trees and K2's combine take h from half the run down
 // to 1, which is the order of the port's ops/msm.py _tree_reduce.
@@ -1142,33 +1161,35 @@ static XHE_HD void daa_write(int32_t *out, const ge &acc, int r) {
 // For the last element, at offset L = hi - lo - 1, that is a balanced binary
 // tree over the 2^K positions ending at L (2^K >= the run's length), whose
 // positions before the run's head are empty: a node with an empty left half
-// is its right half, with no addition.  bucket_sum_one walks the run once
-// and keeps one partial sum a level (a binary counter over the positions),
-// so it makes the run's length - 1 additions, in the scan's order and with
-// its operands on the same sides: the plain version's scan and the kernel
-// give the same rows.
+// is its right half, with no addition.  Point j of the run sits at position
+// pad + j, pad = 2^K - len.
+//
+// The positions are cut into blocks of 2^K9_K, aligned, so that each block
+// is a subtree of that tree: a pass gives each block one thread, which walks
+// it once (subtree_sum) and writes the block's subtree sum.  A run's block
+// sums are then the leaves of the tree's levels above K9_K, with pad >> K9_K
+// empty positions before them, and the next pass walks them the same way.
+// A run of at most 2^K9_K points is one block, whose thread writes the
+// bucket's sum.  Every addition is the scan's, with its operands on the
+// same sides, so a bucket takes its run's length - 1 additions and the
+// plain version's scan and the kernel give the same rows.
 
-// partial sums a thread keeps: runs of any int32 length (up to 2^31 - 1
-// lanes, 2^31 positions); a thread touches only the levels its run needs
-constexpr int K9_LEVELS = 32;
+constexpr int K9_K = 4;  // log2 of the positions a thread of K9 walks (ops/kernels.py K9_K)
 
-// the sum of rows[order[lo]], ..., rows[order[hi - 1]] (hi > lo) as the
-// scan's last element of the run; ``stack`` holds K9_LEVELS points
-static XHE_HD void bucket_sum_one(ge &out, ge *stack, const int32_t *rows, const int32_t *order, int lo,
-                                  int hi) {
-  const unsigned len = (unsigned)(hi - lo);
-  int levels = 0;
-  while ((1u << levels) < len) ++levels;
-  const unsigned pad = (1u << levels) - len;  // the empty positions before the head
-  unsigned present = 0;                       // bit l: stack[l] holds a left sibling
+// The subtree over positions [0, 2^top) whose positions before p0 are empty,
+// point(node, i) giving the point at position p0 + i: one partial sum a
+// level (a binary counter over the positions), left + right as the scan
+// adds them.  stack holds top + 1 points.
+template <class Point>
+static XHE_HD void subtree_sum(ge &out, ge *stack, unsigned p0, int top, Point point) {
+  unsigned present = 0;  // bit l: stack[l] holds a left sibling
   ge node;
 #pragma unroll 1
-  for (unsigned j = 0; j < len; ++j) {
-    const unsigned pos = pad + j;
-    ge_from_rows(node, rows + 72 * (size_t)order[lo + j]);
+  for (unsigned p = p0; p < (1u << top); ++p) {
+    point(node, p - p0);
     int l = 0;
 #pragma unroll 1
-    while ((pos >> l) & 1) {  // node is a right child at level l
+    while ((p >> l) & 1) {  // node is a right child at level l
       if ((present >> l) & 1u) {
         ge_add(node, stack[l], node);
         present &= ~(1u << l);
@@ -1178,7 +1199,68 @@ static XHE_HD void bucket_sum_one(ge &out, ge *stack, const int32_t *rows, const
     stack[l] = node;
     present |= 1u << l;
   }
-  out = stack[levels];
+  out = stack[top];
+}
+
+// the bucket u whose threads first[u] .. first[u + 1] - 1 hold thread t
+// (first: nbk + 1 ascending entries, first[0] = 0 <= t < first[nbk])
+static XHE_HD int bucket_of(const long long *first, int nbk, long long t) {
+  int lo = 0, hi = nbk;
+#pragma unroll 1
+  while (hi - lo > 1) {
+    const int mid = (lo + hi) >> 1;
+    if (first[mid] <= t) {
+      lo = mid;
+    } else {
+      hi = mid;
+    }
+  }
+  return lo;
+}
+
+// A K9 pass's input point i: rows[order[i]] in pass 1 (order set), the
+// previous pass's block sum in[i] after it
+struct k9_input {
+  const int32_t *rows, *order;
+  const ge *in;
+  XHE_HD void operator()(ge &p, long long i) const {
+    if (order != nullptr) {
+      ge_from_rows(p, rows + 72 * (size_t)order[i]);
+    } else {
+      p = in[i];
+    }
+  }
+};
+
+// Thread t of a K9 pass.  Bucket u's run is len[u] points at start[u] of the
+// pass's input, point(node, i) giving input point i; its blocks are threads
+// first[u] .. first[u + 1] - 1.  A run of at most 2^K9_K points (or none:
+// the identity) is the bucket's sum, written to out + 72 u as rows; a longer
+// run's block sums go to blocks[t], in order, for the next pass.  stack
+// holds K9_K + 1 points.
+template <class Point>
+static XHE_HD void bucket_block(int32_t *out, ge *blocks, ge *stack, long long t, const long long *start,
+                                const long long *len, const long long *first, int nbk, Point point) {
+  const int u = bucket_of(first, nbk, t);
+  const long long n = len[u], at = start[u];
+  ge sum;
+  if (n == 0) {
+    ge_identity(sum);
+    ge_to_rows(out + 72 * (size_t)u, sum);
+    return;
+  }
+  int levels = 0;
+  while ((1ll << levels) < n) ++levels;
+  const long long pad = (1ll << levels) - n;
+  if (levels <= K9_K) {
+    subtree_sum(sum, stack, (unsigned)pad, levels, [&](ge &p, unsigned i) { point(p, at + i); });
+    ge_to_rows(out + 72 * (size_t)u, sum);
+    return;
+  }
+  const long long lo = ((pad >> K9_K) + t - first[u]) << K9_K;  // the block's first position
+  const long long j0 = lo > pad ? lo - pad : 0;                  // its first point of the run
+  subtree_sum(sum, stack, (unsigned)(pad + j0 - lo), K9_K, [&](ge &p, unsigned i) { point(p, at + j0 + i); });
+  blocks[t] = sum;
 }
 
 // -- K10: the windows' weighted bucket sums, then Horner over the windows.

@@ -6,14 +6,17 @@ built offline) plus a BSGS search with a configurable range and progress
 callback; ``par_decode`` runs the giant steps as batched device rounds.
 
 On the card both device paths are launches of K8 (csrc/add_compress.cu,
-``ops.kernels.add_compress``), which adds two rows of points, one side
-broadcast, and encodes the sums:
-- ``ECDLPTables.build``: a chunk of baby steps plus the broadcast step point,
-  encoded, the sums kept as the next chunk; the 8-byte prefixes stay on the
-  device until one pull at the end;
-- ``par_decode``: the broadcast cursor plus the lane offsets, encoded, with
-  the big step as one more lane whose sum is the next cursor, so that a
-  round is one launch and the walker never leaves the device.
+``ops.kernels.add_compress``), which adds every row of a to every row of b
+(a grid of lanes) and encodes the sums:
+- ``ECDLPTables.build``: short doubling chains of K8 make the baby steps
+  j*G (j < chunk) and the starts r*chunk*G on the device; then a few
+  launches of about a million lanes add every start to every baby step and
+  write the 8-byte prefixes into their slots, pulled once at the end;
+- ``par_decode``: one launch runs a group of rounds, the group's cursors
+  plus the lane offsets, with the group's big step as one more column whose
+  sums are the next group's cursors, so the walker never leaves the device.
+
+Each phase is a span of ``metrics`` (``ecdlp.build.*``, ``ecdlp.decode.*``).
 """
 
 from __future__ import annotations
@@ -23,9 +26,13 @@ import pathlib
 import numpy as np
 import torch
 
+from .metrics import span
 from .pyref.ristretto import BASEPOINT as G, IDENTITY, RistrettoPoint, mul_base
 
 _PREFIX_BYTES = 8
+# lanes of a table launch of K8 at most: a few launches make the table, and
+# the encodings of one stay 32 MiB at any l1
+_TABLE_LAUNCH_LANES = 1 << 20
 
 
 def _prefix_of(compressed: bytes) -> int:
@@ -59,8 +66,9 @@ class ECDLPTables:
     @staticmethod
     def build(l1: int, accel=None, chunk: int = 4096) -> "ECDLPTables":
         """Generate the 2^l1 baby steps.  With ``accel`` (an
-        ``ops.accel.Accelerator``) the chunks run on its device, one K8
-        launch each; otherwise on host."""
+        ``ops.accel.Accelerator``) they are made on its device by K8, as
+        the grid of starts r*chunk*G and steps j*G (j < chunk); otherwise
+        on host."""
         count = 1 << l1
         if accel is not None and count >= chunk:
             prefixes = _device_prefixes(count, accel, chunk)
@@ -70,7 +78,8 @@ class ECDLPTables:
             for i in range(count):
                 prefixes[i] = _prefix_of(acc.compress())
                 acc = acc + G
-        order = np.argsort(prefixes, kind="stable")
+        with span("ecdlp.build.sort"):
+            order = np.argsort(prefixes, kind="stable")
         return ECDLPTables(l1, prefixes[order], order.astype(np.uint32))
 
     def save(self, path: str | pathlib.Path) -> None:
@@ -146,26 +155,49 @@ class ECDLPTables:
         return np.where(hit, self.idx[pos].astype(np.int64), -1)
 
 
-def _device_prefixes(count: int, accel, chunk: int) -> np.ndarray:
-    """The (count,) uint64 prefixes of compress(i*G) in order of i, chunk by
-    chunk on ``accel``'s device: K8 adds the step chunk*G to every lane and
-    encodes.  Lane i starts at (i - chunk)*G, so the first launch gives the
-    baby steps 0..chunk-1; every launch but the last keeps its sums as the
-    next chunk.  The prefixes are pulled once, at the end."""
+def _multiples(step: torch.Tensor, n: int) -> torch.Tensor:
+    """The (n, 4, 18) rows k*P for k < n, P the one row of ``step``, by a
+    doubling chain of K8: rows k*P (k < m) and one more row m*P, plus P,
+    give the rows m..2m-1 and 2m*P."""
     from .ops import kernels as K
 
-    start, p = [], -mul_base(chunk)
-    for _ in range(chunk):
-        start.append(p)
-        p = p + G
-    batch = accel._to_device_points(start)
-    step = accel._to_device_points([mul_base(chunk)])
-    n_chunks = -(-count // chunk)
-    prefixes = torch.empty((n_chunks * chunk, _PREFIX_BYTES), dtype=torch.uint8, device=accel.device)
-    for k in range(n_chunks):
-        enc, batch = K.add_compress(batch, step, 0 if k + 1 < n_chunks else None)
-        prefixes[k * chunk : (k + 1) * chunk] = enc[:, :_PREFIX_BYTES]
-    return prefixes[:count].cpu().numpy().view("<u8").ravel()
+    rows = K.identity_rows(1, step.device)
+    while rows.shape[0] < n:
+        m = rows.shape[0]
+        need = min(m, n - m)
+        _, sums = K.add_compress(torch.cat([rows[:need], step]), step, 0)
+        rows, step = torch.cat([rows, sums[:need, 0]]), sums[need]
+    return rows[:n]
+
+
+def _wait(t: torch.Tensor) -> None:
+    if t.device.type == "cuda":
+        torch.cuda.synchronize(t.device)
+
+
+def _device_prefixes(count: int, accel, chunk: int) -> np.ndarray:
+    """The (count,) uint64 prefixes of compress(i*G) in order of i, made on
+    ``accel``'s device by K8 as lane (r, j) = r*chunk*G + j*G of the grid of
+    starts and baby steps, at most ``_TABLE_LAUNCH_LANES`` lanes a launch.
+    The prefixes go into their slots on the device and are pulled once, at
+    the end."""
+    from .ops import kernels as K
+
+    starts_n = -(-count // chunk)
+    with span("ecdlp.build.start_rows"):
+        seeds = accel._to_device_points([G, mul_base(chunk)])
+        steps = _multiples(seeds[:1], chunk)  # j*G, j < chunk
+        starts = _multiples(seeds[1:], starts_n)  # r*chunk*G
+        _wait(starts)
+    per = max(1, _TABLE_LAUNCH_LANES // chunk)
+    prefixes = torch.empty((starts_n * chunk, _PREFIX_BYTES), dtype=torch.uint8, device=accel.device)
+    with span("ecdlp.build.k8"):
+        for r in range(0, starts_n, per):
+            enc, _ = K.add_compress(starts[r : r + per], steps)
+            prefixes[r * chunk : (r + per) * chunk] = enc[..., :_PREFIX_BYTES].reshape(-1, _PREFIX_BYTES)
+        _wait(prefixes)
+    with span("ecdlp.build.pull"):
+        return prefixes[:count].cpu().numpy().view("<u8").ravel()
 
 
 _PAR_DECODE_GIANT_THRESHOLD = 1 << 12
@@ -206,16 +238,22 @@ def decode(tables: ECDLPTables, point: RistrettoPoint, args: ECDLPArguments | No
 
 def _pull_async(t: torch.Tensor):
     """Start copying ``t`` to the host without waiting; returns a function
-    that waits for the copy and gives the numpy array."""
+    that waits for the kernel that made ``t`` (span ``ecdlp.decode.k8_wait``),
+    then for the copy (``ecdlp.decode.pull``), and gives the numpy array."""
     if t.device.type != "cuda":
         return t.numpy
+    made = torch.cuda.Event()
+    made.record()
     host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
     host.copy_(t, non_blocking=True)
-    done = torch.cuda.Event()
-    done.record()
+    copied = torch.cuda.Event()
+    copied.record()
 
     def wait():
-        done.synchronize()
+        with span("ecdlp.decode.k8_wait"):
+            made.synchronize()
+        with span("ecdlp.decode.pull"):
+            copied.synchronize()
         return host.numpy()
 
     return wait
@@ -230,9 +268,14 @@ def par_decode(
 ):
     """Giant steps as batched device rounds (parity with ecdlp::par_decode).
 
-    Each round adds a lane-offset table (-j*2^l1*G for j in a window) to the
-    target and encodes the whole window in one launch of K8, which also
-    advances the target by the big step.  Without ``accel`` it runs on
+    A round adds a lane-offset table (-j*2^l1*G for j in a window of
+    ``batch``) to the cursor and encodes the window.  One launch of K8 runs
+    a group of rounds, the group's cursors against the offsets, enough
+    rounds to fill the card (``ops.kernels.K8_FILL_LANES``) and no more
+    than are left; its last column advances each cursor by the group's
+    rounds.  The rounds are looked up and confirmed in order, so the value
+    found and the ``progress_fn`` calls (one a round) are the JAX
+    package's.  Without ``accel`` it runs on
     ``ops.accel.default_accelerator()``, which needs a CUDA device."""
     from .ops import kernels as K
 
@@ -244,47 +287,61 @@ def par_decode(
 
     baby_count = 1 << tables.l1
     target = point - mul_base(args.range_min)
-    span = args.range_max - args.range_min
-    n_giant = (span + baby_count - 1) // baby_count
+    width = args.range_max - args.range_min
+    n_giant = (width + baby_count - 1) // baby_count
     batch = min(batch, max(1, n_giant))
+    n_rounds = -(-n_giant // batch)
+    group = min(-(-K.K8_FILL_LANES // batch), n_rounds)
 
-    # lane offsets: -(j * 2^l1) * G for j in [0, batch), then the big step
-    # -(batch * 2^l1) * G as the lane whose sum is the next cursor
+    # lane offsets: -(j * 2^l1) * G for j in [0, batch), then the group's big
+    # step -(group * batch * 2^l1) * G as the column whose sums are the next
+    # group's cursors
     neg_gs = -mul_base(baby_count)
     offs = [IDENTITY]
     for _ in range(batch - 1):
         offs.append(offs[-1] + neg_gs)
-    lanes = accel._to_device_points(offs + [-mul_base(baby_count * batch)])
+    lanes = accel._to_device_points(offs + [-mul_base(baby_count * batch * group)])
+    cursors, round_step = [target], -mul_base(baby_count * batch)
+    for _ in range(group - 1):
+        cursors.append(cursors[-1] + round_step)
 
-    # The walker stays DEVICE-RESIDENT: each round is one launch, whose
+    # The walker stays DEVICE-RESIDENT: each group is one launch, whose
     # encodings start on their way to the host at once; the host pulls them
     # for the prefix-table lookup.
-    def _round(cur):
-        enc, nxt = K.add_compress(cur, lanes, batch)
-        return _pull_async(enc[:batch]), nxt
+    def _group(cur, rounds):
+        enc, nxt = K.add_compress(cur[:rounds], lanes, batch)
+        return _pull_async(enc), nxt[:, 0]
 
-    cur = accel._to_device_points([target])
-    done = 0
-    # two-deep pipeline: dispatch round k+1 before pulling round k, so the
-    # device works on the next round while the host looks up this one
-    pending, cur = _round(cur)
-    while done < n_giant:
-        if done + batch < n_giant:
-            nxt, cur = _round(cur)
-        else:
-            nxt = None
-        encs = pending()
-        cands = tables.lookup_many(encs)
-        for j in np.nonzero(cands >= 0)[0]:
-            if done + int(j) >= n_giant:
-                continue
-            cand = int(cands[j])
-            m = args.range_min + (done + int(j)) * baby_count + cand
-            # prefix hits are candidates only: confirm exactly
-            if m < args.range_max and mul_base(m) == point:
-                return m
-        done += batch
-        pending = nxt
-        if args.progress_fn is not None:
-            args.progress_fn(min(1.0, done / n_giant))
+    cur = accel._to_device_points(cursors)
+    done = 0  # rounds looked up
+    # two-deep pipeline: dispatch group k+1 before pulling group k, so the
+    # device works on the next group while the host looks up this one
+    rounds = group
+    pending, cur = _group(cur, rounds)
+    while done < n_rounds:
+        with span("ecdlp.decode.group"):
+            left = n_rounds - done - rounds
+            if left > 0:
+                nxt_rounds = min(group, left)
+                nxt, cur = _group(cur, nxt_rounds)
+            else:
+                nxt, nxt_rounds = None, 0
+            encs = pending()
+            with span("ecdlp.decode.lookup"):
+                cands = tables.lookup_many(encs[:, :batch].reshape(-1, 32)).reshape(rounds, batch)
+            for r in range(rounds):
+                first = (done + r) * batch  # giant steps before this round
+                with span("ecdlp.decode.confirm"):
+                    for j in np.nonzero(cands[r] >= 0)[0]:
+                        if first + int(j) >= n_giant:
+                            continue
+                        cand = int(cands[r, j])
+                        m = args.range_min + (first + int(j)) * baby_count + cand
+                        # prefix hits are candidates only: confirm exactly
+                        if m < args.range_max and mul_base(m) == point:
+                            return m
+                if args.progress_fn is not None:
+                    args.progress_fn(min(1.0, (first + batch) / n_giant))
+            done += rounds
+            pending, rounds = nxt, nxt_rounds
     return None

@@ -39,8 +39,8 @@ SIGNATURES = {
     "windowed_lane": ("xhe_windowed_lanes", [_vp, _vp, _vp, _int, _vp]),
     "windowed_lanes_fe15": ("xhe_windowed_lanes_k8_fe15", [_vp, _vp, _vp, _vp, _int, _vp]),
     "daa_lanes": ("xhe_daa_lanes", [_vp, _vp, _vp, _int, _vp]),
-    "add_compress": ("xhe_add_compress", [_vp, _vp, _vp, _vp, _int, _int, _int, _int, _vp]),
-    "bucket_sums": ("xhe_bucket_sums", [_vp, _vp, _vp, _vp, _int, _int, _int, _vp]),
+    "add_compress": ("xhe_add_compress", [_vp, _vp, _vp, _vp, _int, _int, _int, _vp]),
+    "bucket_sums": ("xhe_bucket_sums", [_vp, _vp, _vp, _vp, _vp, _vp, _int, _int, _vp, _vp, _vp]),
     "window_sums": ("xhe_window_sums", [_vp, _vp, _vp, _vp, _int, _int, _vp]),
     "probe_imad": ("xhe_probe_imad", [_vp, _vp, _vp, _int, _int, _int, _vp]),
     "probe_mul15": ("xhe_probe_mul15", [_vp, _vp, _vp, _int, _int, _int, _vp]),

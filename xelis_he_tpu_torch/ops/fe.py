@@ -126,9 +126,18 @@ def _diag_sums(m: torch.Tensor) -> torch.Tensor:
 
 
 class Field:
-    """fe25519 over int64 tensors of shape (..., 18) on ``device``."""
+    """fe25519 over int64 tensors of shape (..., 18) on ``device``: the card
+    unless the caller names another (``device="cpu"`` for the kernels' plain
+    versions)."""
 
-    def __init__(self, device="cpu"):
+    def __init__(self, device=None):
+        if device is None:
+            if not torch.cuda.is_available():
+                raise RuntimeError(
+                    "Field() runs on a CUDA device and none is available; "
+                    "pass device='cpu' for the kernels' plain versions"
+                )
+            device = "cuda"
         self.device = torch.device(device)
         # a check reads the tensor back to the host: CPU tensors only
         self.check = self.device.type == "cpu"

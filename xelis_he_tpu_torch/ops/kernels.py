@@ -87,7 +87,10 @@ FIELD_SQS = {"decompress": 256, "windowed_lanes_k8": 1152, "tile_sums": 0, "comp
              "bucket_sums": 0, "window_sums": 0}
 DAA_MULS_PER_SET_BIT = 9
 DBL_MULS, DBL_SQS = 4, 4  # a doubling with T (ge_dbl)
-K9_LEVELS = 32  # partial sums a thread of K9 keeps (csrc/ed25519.cuh): runs of any int32 length
+# lanes of a K8 launch that keep every SM of the card busy (csrc/add_compress.cu):
+# a par_decode group runs this many lanes' worth of rounds
+K8_FILL_LANES = 1 << 17
+K9_K = 4  # log2 of the positions a thread of K9 walks in a pass (csrc/ed25519.cuh K9_K)
 K10_THREADS = 256  # threads a window of K10, at most (csrc/ed25519.cuh)
 # Issue slots of a 32 x 32 -> 64-bit multiply-add (IMAD.WIDE.U32 and the
 # additions of its 64-bit sum) in 32-bit multiply-adds: K11's wide form, an
@@ -158,6 +161,52 @@ def bucket_additions(offsets: torch.Tensor) -> int:
     n - 1 additions (bucket 0, digit 0, is not summed)."""
     counts = (offsets[:, 2:] - offsets[:, 1:-1]).to(torch.int64)
     return int((counts - 1).clamp(min=0).sum())
+
+
+def k9_passes(n: int) -> int:
+    """K9's launches on n lanes: passes until a run of n lanes is one block
+    of 2^K9_K positions (a pass leaves a run of L at most ceil(L / 2^K9_K)
+    block sums)."""
+    passes, run = 1, n
+    while run > 1 << K9_K:
+        run, passes = -(-run // (1 << K9_K)), passes + 1
+    return passes
+
+
+def _k9_blocks(length: torch.Tensor, first_pass: bool) -> torch.Tensor:
+    """Threads a K9 pass gives each run of ``length`` points: its blocks of
+    2^K9_K positions in the tree of 2^levels >= length positions whose first
+    pad = 2^levels - length are empty; one for a run of at most 2^K9_K; one
+    for an empty bucket in the first pass (it writes the identity), none
+    after."""
+    levels = torch.frexp((length - 1).clamp(min=0).to(torch.float64)).exponent.to(torch.int64)
+    pad = (torch.ones_like(length) << levels) - length
+    split = (torch.ones_like(length) << (levels - K9_K).clamp(min=0)) - (pad >> K9_K)
+    blocks = torch.where(levels <= K9_K, 1, split)
+    return torch.where(length == 0, int(first_pass), blocks)
+
+
+def bucket_passes(offsets: torch.Tensor, n: int):
+    """K9's plan for (W, 2^c + 1) run offsets over n lanes, on their device:
+    yields, for each of the ``k9_passes(n)`` passes in turn (so the card
+    runs one pass while the host makes the next one's), each bucket's run
+    in that pass's input as (start, length) and the first thread of each
+    bucket's blocks (a prefix sum, one more entry: the pass's threads),
+    int64 tensors.  Bucket
+    b >= 1 of window w is bucket w (2^c - 1) + b - 1.  Pass 1 reads the
+    lanes order[w][offsets[w][b]:...] (start w n + offsets[w][b] of the
+    flat order); a later pass reads the previous pass's block sums of the
+    runs it split, which lie at the first thread of their bucket."""
+    W = offsets.shape[0]
+    off = offsets.to(torch.int64)
+    start = (off[:, 1:-1] + n * torch.arange(W, device=off.device)[:, None]).reshape(-1)
+    length = (off[:, 2:] - off[:, 1:-1]).reshape(-1)
+    for p in range(k9_passes(n)):
+        blocks = _k9_blocks(length, p == 0)
+        first = torch.zeros(blocks.shape[0] + 1, dtype=torch.int64, device=off.device)
+        torch.cumsum(blocks, 0, out=first[1:])
+        yield start, length, first
+        start, length = first[:-1], torch.where(blocks >= 2, blocks, 0)
 
 
 def window_sums_work(windows: int, c: int) -> tuple[int, int]:
@@ -371,15 +420,16 @@ def windowed_lanes_plain(points: torch.Tensor, digits: torch.Tensor) -> torch.Te
     return point_to_rows(acc, fe).to(torch.int32)
 
 
-def add_compress_plain(a: torch.Tensor, b: torch.Tensor, sums_from: int | None):
-    """K8's function: lane i = a[i or 0] + b[i or 0] by ``Curve.add``, then
-    ``compress_plain`` of the canonical sums; the sums of lanes from
-    ``sums_from`` on (None: no sums)."""
+def add_compress_plain(a: torch.Tensor, b: torch.Tensor, sums_from: int | None = None):
+    """K8's function: lane (r, j) = a[r] + b[j] by ``Curve.add`` over the
+    broadcast (R, n) grid, then ``compress_plain`` of the canonical sums;
+    the sums of the columns from ``sums_from`` on (None: no sums)."""
     c = _curve(a.device)
-    n = max(a.shape[0], b.shape[0])
-    p, q = (tuple(x.expand(n, NLIMBS) for x in rows_to_point(r)) for r in (a, b))
+    R, n = a.shape[0], b.shape[0]
+    p = tuple(x[:, None].expand(R, n, NLIMBS) for x in rows_to_point(a))
+    q = tuple(x[None].expand(R, n, NLIMBS) for x in rows_to_point(b))
     rows = point_to_rows(c.add(p, q), c.fe).to(torch.int32)
-    return compress_plain(rows), None if sums_from is None else rows[sums_from:]
+    return compress_plain(rows), None if sums_from is None else rows[:, sums_from:].contiguous()
 
 
 def daa_lanes_plain(points: torch.Tensor, bits: torch.Tensor) -> torch.Tensor:
@@ -645,26 +695,24 @@ def sum_points(rows: torch.Tensor) -> torch.Tensor:
 
 
 def add_compress(a: torch.Tensor, b: torch.Tensor, sums_from: int | None = None):
-    """K8: a (n or 1, 4, 18) and b (n or 1, 4, 18) int32 rows, a side of one
-    row broadcast -> ((n, 32) uint8 encodings of the sums a[i] + b[i], the
-    (n - sums_from, 4, 18) int32 canonical sums of lanes sums_from.. or None
-    when ``sums_from`` is None)."""
-    n = max(a.shape[0], b.shape[0])
-    _expect(a, torch.int32, (a.shape[0], 4, NLIMBS), "addend rows a")
-    _expect(b, torch.int32, (b.shape[0], 4, NLIMBS), "addend rows b")
-    if a.shape[0] not in (1, n) or b.shape[0] not in (1, n) or a.device != b.device:
-        raise ValueError(f"addends of {a.shape[0]} and {b.shape[0]} rows on {a.device}, {b.device}: "
-                         "want n rows or one, on one device")
+    """K8: a (R, 4, 18) and b (n, 4, 18) int32 rows -> ((R, n, 32) uint8
+    encodings of the sums a[r] + b[j], the (R, n - sums_from, 4, 18) int32
+    canonical sums of the columns sums_from.. or None when ``sums_from`` is
+    None)."""
+    R, n = a.shape[0], b.shape[0]
+    _expect(a, torch.int32, (R, 4, NLIMBS), "addend rows a")
+    _expect(b, torch.int32, (n, 4, NLIMBS), "addend rows b")
+    if a.device != b.device:
+        raise ValueError(f"addends on {a.device} and {b.device}: want one device")
     if sums_from is not None and not 0 <= sums_from <= n:
         raise ValueError(f"sums_from {sums_from} outside [0, {n}]")
     if not _on_card(a):
         return add_compress_plain(a, b, sums_from)
-    enc = torch.empty((n, 32), dtype=torch.uint8, device=a.device)
-    sums = None if sums_from is None else torch.empty((n - sums_from, 4, NLIMBS), dtype=torch.int32,
+    enc = torch.empty((R, n, 32), dtype=torch.uint8, device=a.device)
+    sums = None if sums_from is None else torch.empty((R, n - sums_from, 4, NLIMBS), dtype=torch.int32,
                                                         device=a.device)
-    if n:
-        _launch("add_compress", "add_compress", a, b, enc, sums, a.shape[0], b.shape[0],
-                n if sums_from is None else sums_from, n)
+    if R and n:
+        _launch("add_compress", "add_compress", a, b, enc, sums, R, n, n if sums_from is None else sums_from)
     return enc, sums
 
 
@@ -681,11 +729,23 @@ def bucket_sums(rows: torch.Tensor, order: torch.Tensor, offsets: torch.Tensor) 
         raise ValueError(f"{nb} buckets: want a power of two, 2 to 2^24")
     if not _on_card(rows):
         return bucket_sums_plain(rows, order, offsets)
-    if n >= 1 << (K9_LEVELS - 1):  # the kernel's lane indices and run offsets are int32
-        raise ValueError(f"{n} lanes: K9 takes fewer than 2^{K9_LEVELS - 1}")
+    if n >= 1 << 31:  # the kernel's lane indices are int32
+        raise ValueError(f"{n} lanes: K9 takes fewer than 2^31")
     out = torch.empty((W, nb - 1, 4, NLIMBS), dtype=torch.int32, device=rows.device)
     if W:
-        _launch("bucket_sums", "bucket_sums", rows, order, offsets, out, W, n, nb.bit_length() - 1)
+        nbk, passes = W * (nb - 1), k9_passes(n)
+        # threads of a pass at most: in pass 1 a run of L > 0 lanes makes at
+        # most ceil(L / 2^K9_K) blocks; a later pass has at most a thread for
+        # each block sum it reads, fewer than the pass before it had threads
+        cap = nbk + ((W * n) >> K9_K)
+        scratch = [torch.empty((cap, GE_WORDS), dtype=torch.int32, device=rows.device)
+                   for _ in range(min(2, passes - 1))]
+        src = None
+        for p, (start, length, first) in enumerate(bucket_passes(offsets, n)):
+            dst = scratch[p % 2] if p + 1 < passes else None
+            _launch("bucket_sums", "bucket_sums", rows, order if p == 0 else None, src, start, length, first,
+                    nbk, cap, out, dst)
+            src = dst
     return out
 
 

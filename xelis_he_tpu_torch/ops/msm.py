@@ -72,7 +72,8 @@ def _inclusive_scan(curve: Curve, flags: torch.Tensor, pts):
     """Hillis-Steele segmented inclusive scan over the leading axis: at
     shift s, element j >= s becomes element j - s combined with element j.
     K9's plain version; the kernel makes the same additions for each
-    segment's last element (csrc/ed25519.cuh bucket_sum_one)."""
+    segment's last element, block by aligned block (csrc/ed25519.cuh
+    bucket_block)."""
     n = int(flags.shape[0])
     shift = 1
     while shift < n:
