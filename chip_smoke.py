@@ -110,9 +110,12 @@ DIR (for instance a ``git archive`` of an earlier commit) at the main path's
 largest shapes, K7 also at a count that fills the card, K8 on 16 decode
 rounds of 8,193 lanes (one launch or sixteen, as the tree's K8 takes them)
 and K9 on the digits of 65,536 scalars (all its launches), on inputs made
-from ``--seed``, with a digest of each output, the ptxas figures of K1, K4,
-K6-K10 and K1's and K4's SASS mix of one squaring, and prints one JSON
-line: run it on two checkouts in one call to compare them on one card.
+from ``--seed``, with a digest of each output, then the entry points that
+call K8 and K9 on the host's clock (the l1 = 22 table, a decode that hits
+in its first round, a full walk of [0, 2^44), ``msm_points`` at 65,536
+points), the ptxas figures of K1, K4, K6-K10 and K1's and K4's SASS mix of
+one squaring, and prints one JSON line: run it on two checkouts in one call
+to compare them on one card.
 """
 
 from __future__ import annotations
@@ -1515,10 +1518,13 @@ def pass_ms(fn, kernel: str, launches: int, reps: int = 5) -> list[float] | None
     return None
 
 
+K9_MS_FROM = ("its passes' profiler records", "CUDA events around whole calls (plan glue and launch gaps included)")
+
+
 def call_device_ms(fn, kernel: str, launches: int) -> tuple[float, list[float] | None]:
     """(device ms of one call of ``fn``, its launches' ms or None): the sum
     of ``pass_ms``, or CUDA events around single calls (``time_ms``), which
-    count the host's launch gaps too."""
+    count the host's launch gaps too; a caller marks which (``K9_MS_FROM``)."""
     ms = pass_ms(fn, kernel, launches)
     return (sum(ms), ms) if ms is not None else (time_ms(fn), None)
 
@@ -1543,10 +1549,11 @@ def k9_figures(args, clock_hz) -> dict:
     total, ms = call_device_ms(lambda: K.bucket_sums(*args), KERNELS["bucket_sums"][2], len(plan))
     shape, bound_ms, bound_by = bound("bucket_sums", args, clock_hz)
     out = {"k": K.K9_K, "passes": len(plan), "threads": threads, "longest_walk": walk, "pass_ms": ms,
-           "ms": total, "bound_ms": bound_ms, "bound_by": bound_by, "share_of_bound": bound_ms / total,
-           "shape": shape}
+           "ms": total, "ms_from": K9_MS_FROM[ms is None], "bound_ms": bound_ms, "bound_by": bound_by,
+           "share_of_bound": bound_ms / total, "shape": shape}
     log(f"  K9 at {shape}: {len(plan)} passes of {threads} threads, longest walk {walk} lanes (2^k = "
-        f"{1 << K.K9_K}); device ms {ms and [round(x, 4) for x in ms]}, total {total:.4f} against a bound of "
+        f"{1 << K.K9_K}); device ms {ms and [round(x, 4) for x in ms]}, total {total:.4f} ({out['ms_from']}) "
+        f"against a bound of "
         f"{bound_ms:.5f} ms ({bound_by}): {100 * bound_ms / total:.2f}%")
     return out
 
@@ -1774,8 +1781,10 @@ def kernel_line(recorders, launches, errs, clock_hz, peak):
         else:
             res = expect_equal(f"{name} (main-path shape)", out_k, out_p)
         n_bad, err = worst(res, errs[name])
+        extra = {}
         if name == "bucket_sums":  # one call is its passes: their device time together
-            ms = call_device_ms(lambda: kernel(*args), KERNELS[name][2], K.k9_passes(args[0].shape[0]))[0]
+            ms, passes = call_device_ms(lambda: kernel(*args), KERNELS[name][2], K.k9_passes(args[0].shape[0]))
+            extra["ms_from"] = K9_MS_FROM[passes is None]
         else:
             ms = device_ms(lambda: kernel(*args), KERNELS[name][2])
         one_call_ms = call_ms(lambda: kernel(*args))
@@ -1788,7 +1797,7 @@ def kernel_line(recorders, launches, errs, clock_hz, peak):
             "launches": launches[name], "max_abs_err": err, "max_mismatch": n_bad,
             "shape": shape, "ms": ms, "call_ms": one_call_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": None, "share_of_bound": bound_ms / ms,
-            "bound_ms_measured_peak": peak_ms, "share_of_measured_peak": peak_ms / ms,
+            "bound_ms_measured_peak": peak_ms, "share_of_measured_peak": peak_ms / ms, **extra,
         })
         log(f"  {name} at {shape}: {ms:.4f} ms on the device, {one_call_ms:.4f} ms a call "
             f"(plain {plain_ms:.1f} ms, bound {bound_ms:.5f} ms)")
@@ -1915,9 +1924,9 @@ def kernels_from(root: pathlib.Path, seed: int) -> dict:
     from 1,024 valid encodings through K1, K4's from K2's slot sums, so Z !=
     1), with a digest of each kernel's output (K1's rows and flags, K4's
     bytes, K7's rows, the others' sums encoded by the running tree's K4),
-    which any two commits must share; ptxas's figures of K1, K4, K6 and K7
-    and one fe_sq's SASS instruction mix of K1 and K4 as that tree builds
-    them."""
+    which any two commits must share; K8, K9 and the entry points that call
+    them (``end_to_end``); ptxas's figures of K1, K4 and K6-K10 and one
+    fe_sq's SASS instruction mix of K1 and K4 as that tree builds them."""
     import hashlib
 
     import numpy as np
@@ -2006,6 +2015,7 @@ def kernels_from(root: pathlib.Path, seed: int) -> dict:
         per_call = K.launches[name] - before
         out[f"{name} at {shape}"] = {"ms": device_ms(fn, KERNELS[name][2]) * per_call, "launches": per_call,
                                      "call_ms": call_ms(fn, 10), "digest": digest(res)}
+    out.update(end_to_end(rng, encs, device))
     torch.cuda.synchronize()
     for name in BUILD_FIGURES:
         fn_name, lib = KERNELS[name][2], LIBS[name]
@@ -2014,6 +2024,45 @@ def kernels_from(root: pathlib.Path, seed: int) -> dict:
         if name in ("decompress", "compress"):
             info["fe_sq_sass"] = sass_loop_mix(lib_dir / f"lib{lib}.so", fn_name)
         out[f"{name} build"] = info
+    return out
+
+
+def end_to_end(rng: random.Random, encs: bytes, device) -> dict:
+    """The entry points that call K8 and K9, on the host's clock (``host_ms``
+    after a warm call: the median of 3 for the build and the walk, of 9 for
+    the others), in the tree ``kernels_from`` imported:
+    the l1 = 22 table, a decode at 8,192 lanes a round whose value lies in
+    the first round, a full walk of [0, 2^44) (a value out of range), and
+    ``msm_points`` at 65,536 points (window 13; the 1,024 points of ``encs``
+    repeated), with a digest of its result that any two commits share."""
+    from xelis_he_tpu_torch.ecdlp import ECDLPArguments, ECDLPTables, par_decode
+    from xelis_he_tpu_torch.ops.accel import Accelerator
+    from xelis_he_tpu_torch.ops.curve import Curve
+    from xelis_he_tpu_torch.ops.fe import Field
+    from xelis_he_tpu_torch.ops.msm import MsmEngine
+    from xelis_he_tpu_torch.pyref.ristretto import mul_base
+
+    accel = Accelerator()
+    tables = ECDLPTables.build(22, accel=accel)
+    walk = ECDLPArguments(0, 1 << 44)
+    first = rng.randrange(1 << 35)  # below 2^22 baby steps x 8,192 giant steps: round 0
+    out = {"ecdlp build l1 = 22 ms": host_ms(lambda: ECDLPTables.build(22, accel=accel))}
+    for what, m, want in (("a hit in round 0", first, first), ("a full walk", (1 << 44) + 12345, None)):
+        point = mul_base(m)
+        got = par_decode(tables, point, walk, accel=accel, batch=8192)
+        if got != want:
+            raise AssertionError(f"par_decode {what}: {got} != {want}")
+        out[f"par_decode {what} ms"] = host_ms(lambda point=point: par_decode(tables, point, walk, accel=accel,
+                                                                              batch=8192), 9 if want else 3)
+    n = 65_536
+    pts, valid = accel.decompress_many([encs[i % 1024 * 32 : i % 1024 * 32 + 32] for i in range(n)])
+    if not all(valid):
+        raise AssertionError("decompress_many rejected a valid encoding")
+    scal = [rng.randrange(L) for _ in range(n)]
+    engine = MsmEngine(Curve(Field(device)), window=13)
+    out[f"msm_points at {n} points ms"] = host_ms(lambda: engine.msm_points(scal, pts), 9)
+    out[f"msm_points at {n} points digest"] = engine.msm_points(scal, pts).compress().hex()[:16]
+    log(f"  end to end (host clock): {json.dumps(out)}")
     return out
 
 

@@ -30,7 +30,9 @@ from xelis_he_tpu.ops.fe import numpy_field
 from xelis_he_tpu.ops.msm import _tree_reduce
 from xelis_he_tpu.pyref import field as pf
 from xelis_he_tpu.pyref.ristretto import IDENTITY, L, mul_base, multiscalar_mul
+from xelis_he_tpu_torch.ops import _build
 from xelis_he_tpu_torch.ops import kernels as K
+from xelis_he_tpu_torch.scripts import bench_k8_k9 as BK
 
 P = pf.P
 # small tensor ops: one intra-op thread, so parallel test workers keep their cores
@@ -938,6 +940,24 @@ def test_cuh_bucket_passes_match_plain_at_run_lengths(shim, runs):
         assert bool((blocks[length > K9_BLOCK] >= 2).all())  # a longer one is split into blocks
     if max(runs) > K9_BLOCK * K9_BLOCK:
         assert len(threads) >= 3 and threads[1] > 1 and threads[2] >= 1
+
+
+@pytest.mark.parametrize("file, values", [("add_compress.cu", {"K8_THREADS": t, "K8_REGISTERS": r})
+                                          for t, r in BK.K8_SHAPES] + [("ed25519.cuh", {"K9_K": k}) for k in BK.K9_KS],
+                         ids=[f"k8-{t}x{r}" for t, r in BK.K8_SHAPES] + [f"k9-k{k}" for k in BK.K9_KS])
+def test_variant_sources_change_only_their_constants(file, values):
+    """The block-shape script's variants (``scripts/bench_k8_k9``): each is
+    the kernel's source with only its constants' definitions changed, and a
+    constant the source does not define exactly once is refused."""
+    src = (_build.CSRC / file).read_text()
+    out = BK.substitute(src, values)
+    assert len(out.splitlines()) == len(src.splitlines())
+    for a, b in zip(src.splitlines(), out.splitlines()):
+        const = next((c for c in values if a.startswith(f"constexpr int {c} = ")), None)
+        assert b == a if const is None else b.startswith(f"constexpr int {const} = {values[const]};")
+    assert all(sum(line.startswith(f"constexpr int {c} = ") for line in src.splitlines()) == 1 for c in values)
+    with pytest.raises(RuntimeError, match="0 definitions of K8_MISSING"):
+        BK.substitute(src, {"K8_MISSING": 1})
 
 
 @pytest.mark.parametrize("case", range(2))

@@ -327,15 +327,17 @@ def par_decode(
             else:
                 nxt, nxt_rounds = None, 0
             encs = pending()
-            with span("ecdlp.decode.lookup"):
-                cands = tables.lookup_many(encs[:, :batch].reshape(-1, 32)).reshape(rounds, batch)
             for r in range(rounds):
                 first = (done + r) * batch  # giant steps before this round
+                # one round's lookup at a time, so a hit in an early round
+                # returns without looking up the rest of its group
+                with span("ecdlp.decode.lookup"):
+                    cands = tables.lookup_many(encs[r, :batch])
                 with span("ecdlp.decode.confirm"):
-                    for j in np.nonzero(cands[r] >= 0)[0]:
+                    for j in np.nonzero(cands >= 0)[0]:
                         if first + int(j) >= n_giant:
                             continue
-                        cand = int(cands[r, j])
+                        cand = int(cands[j])
                         m = args.range_min + (first + int(j)) * baby_count + cand
                         # prefix hits are candidates only: confirm exactly
                         if m < args.range_max and mul_base(m) == point:

@@ -1,6 +1,6 @@
 """K8's block shape and K9's block size on the card.
 
-    python -m xelis_he_tpu_torch.scripts.bench_k8_k9 [--reps 5]
+    python -m xelis_he_tpu_torch.scripts.bench_k8_k9   (from the repo root)
 
 Each variant is the port's CUDA source with its constants changed (K8's
 block shape in csrc/add_compress.cu: ``K8_THREADS`` a block and
@@ -9,9 +9,10 @@ block shape in csrc/add_compress.cu: ``K8_THREADS`` a block and
 walks), built by nvcc into its own directory beside the port's build and
 swapped in for the built kernel behind the port's own wrapper.  Every
 variant's output is held bit for bit to the built kernel's, which
-chip_smoke.py holds to the plain version.  Times are CUDA events around one
-call (K9: all its passes and their glue), the median of ``--reps``; K9
-also as device time, its launches' profiler records summed over a call.
+chip_smoke.py holds to the plain version.  Times are chip_smoke.py's: CUDA
+events around one call (K9: all its passes and their glue), the median of
+``REPS`` (``time_ms``), and K9's device time, its passes' profiler records
+summed over a call (``call_device_ms``).
 
 One JSON line a variant, with ptxas's registers, stack and spills and the
 card's name and power limit:
@@ -23,14 +24,12 @@ card's name and power limit:
 
 from __future__ import annotations
 
-import argparse
 import ctypes
 import json
 import pathlib
 import random
 import re
 import shutil
-import statistics
 import subprocess
 
 import numpy as np
@@ -42,6 +41,8 @@ from ..ops.msm import bucket_runs, decompose_digits
 from ..pyref.ristretto import mul_base
 
 L = 2**252 + 27742317777372353535851937790883648493
+SEED = 1  # of the inputs
+REPS = 5  # timed calls of each shape (median)
 # K8's (threads a block, registers a thread at most): warps an SM, 65,536
 # registers in units of 256 a warp and whole blocks: 8 at 255 and at 168
 # (2 and 3 blocks of 128), 9 at 224 (blocks of 96), 10 at 200 (blocks of
@@ -52,31 +53,17 @@ FILL_ROWS = (8, 16, 32, 64, 128, 256)  # grids of FILL_ROWS x 4,096 lanes: 2^15 
 OUT = pathlib.Path("chiprun_out") / "k8_k9_variants.json"
 
 
-def smi(query: str) -> str:
-    out = subprocess.run(["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
-                         capture_output=True, text=True, timeout=60, check=True)
-    return out.stdout.strip().splitlines()[0]
+def substitute(src: str, values: dict) -> str:
+    """``src`` with each ``constexpr int NAME = <n>;`` of ``values`` set to
+    its value; raises unless each is defined exactly once."""
+    for const, value in values.items():
+        src, n = re.subn(rf"constexpr int {const} = \d+;", f"constexpr int {const} = {value};", src)
+        if n != 1:
+            raise RuntimeError(f"{n} definitions of {const}")
+    return src
 
 
-def ptxas(log: str, kernel: str) -> dict:
-    """Registers, stack frame and spill bytes of ``kernel`` in an ``nvcc
-    -Xptxas -v`` log."""
-    lines = log.splitlines()
-    for at, line in enumerate(lines):
-        if "Function properties for" in line and kernel in line:
-            info = {}
-            for nxt in lines[at + 1 : at + 4]:
-                m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", nxt)
-                if m:
-                    info["stack"], info["spill_stores"], info["spill_loads"] = map(int, m.groups())
-                m = re.search(r"Used (\d+) registers", nxt)
-                if m:
-                    info["registers"] = int(m.group(1))
-            return info
-    raise RuntimeError(f"ptxas reported nothing for {kernel}")
-
-
-def build_variants(specs) -> dict:
+def build_variants(specs, ptxas_info) -> dict:
     """specs: {tag: (library, file, {constant: value})} -> {tag: (ctypes
     function, ptxas figures)}; one nvcc process a variant, side by side."""
     root = _build.build_dir().parent / "variants"
@@ -85,12 +72,7 @@ def build_variants(specs) -> dict:
         out = root / tag
         shutil.rmtree(out, ignore_errors=True)
         shutil.copytree(_build.CSRC, out)
-        src = (out / file).read_text()
-        for const, value in values.items():
-            src, n = re.subn(rf"constexpr int {const} = \d+;", f"constexpr int {const} = {value};", src)
-            if n != 1:
-                raise RuntimeError(f"{file}: {n} definitions of {const}")
-        (out / file).write_text(src)
+        (out / file).write_text(substitute((out / file).read_text(), values))
         cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(out), "-o", str(out / f"lib{lib}.so"),
                str(out / f"{lib}.cu")]
         procs[tag] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
@@ -103,49 +85,19 @@ def build_variants(specs) -> dict:
         sym, argtypes = _build.SIGNATURES[lib]
         fn = getattr(ctypes.CDLL(str(root / tag / f"lib{lib}.so")), sym)
         fn.argtypes, fn.restype = argtypes, ctypes.c_int
-        built[tag] = (fn, ptxas(log, f"{lib}_kernel"))
+        built[tag] = (fn, ptxas_info(log, f"{lib}_kernel"))
     return built
 
 
-def call_ms(fn, reps: int) -> float:
-    fn()
-    times = []
-    for _ in range(reps):
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
+def main() -> int:
+    import chip_smoke as CS  # its timing and ptxas helpers; run from the repo root
 
-
-def device_ms(fn, kernel: str, reps: int) -> float:
-    """Device time of one call of ``fn``: the kernel's profiler records over
-    ``reps`` calls, summed, over ``reps``."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = [e.time_range.end - e.time_range.start for e in prof.events()
-          if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.name]
-    return sum(us) / reps / 1e3
-
-
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--reps", type=int, default=5, help="timed calls of each shape (median)")
-    ap.add_argument("--seed", type=int, default=1, help="seed of the inputs")
-    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("bench_k8_k9: no CUDA device")
     device = torch.device("cuda")
-    card = smi("name,power.limit")
-    rng = random.Random(args.seed)
-    gen = torch.Generator(device).manual_seed(args.seed)
+    card = CS.nvidia_smi("name,power.limit")
+    rng = random.Random(SEED)
+    gen = torch.Generator(device).manual_seed(SEED)
     encs = b"".join(mul_base(rng.randrange(1, L)).compress() for _ in range(1024))
     pool, valid = K.decompress(torch.from_numpy(np.frombuffer(encs, np.uint8).reshape(-1, 32).copy()).to(device))
     if not bool(valid.all()):
@@ -171,7 +123,7 @@ def main(argv=None) -> int:
     _build.kernel_fn("add_compress")  # the port's own build first, for the reference outputs
     want8 = {what: K.add_compress(*c)[0] for what, c in k8_cases.items()}
     want9 = {what: K.bucket_sums(*c) for what, c in k9_cases.items()}
-    built = build_variants(specs)
+    built = build_variants(specs, CS.ptxas_info)
     lines = []
     for tag, (fn, figures) in built.items():
         lib = specs[tag][0]
@@ -185,17 +137,21 @@ def main(argv=None) -> int:
                 for what, c in k8_cases.items():
                     if not torch.equal(K.add_compress(*c)[0], want8[what]):
                         raise AssertionError(f"{tag}: K8 on the {what} differs from the built kernel")
-                    ms = call_ms(lambda c=c: K.add_compress(*c), args.reps)
+                    call = lambda c=c: K.add_compress(*c)  # noqa: E731
+                    call()
+                    ms = CS.time_ms(call, REPS)
                     lanes = c[0].shape[0] * c[1].shape[0]
                     line[what] = {"ms": ms, "ns_a_lane": ms * 1e6 / lanes}
             else:
                 for what, c in k9_cases.items():
                     if not torch.equal(K.bucket_sums(*c), want9[what]):
                         raise AssertionError(f"{tag}: K9 on {what} differs from the built kernel")
-                    fn = lambda c=c: K.bucket_sums(*c)  # noqa: E731
-                    line[what] = {"ms": call_ms(fn, args.reps), "device_ms": device_ms(fn, "bucket_sums_kernel",
-                                                                                         args.reps),
-                                  "passes": K.k9_passes(c[0].shape[0])}
+                    call = lambda c=c: K.bucket_sums(*c)  # noqa: E731
+                    passes = K.k9_passes(c[0].shape[0])
+                    call()
+                    device_ms, pass_ms = CS.call_device_ms(call, "bucket_sums_kernel", passes)
+                    line[what] = {"ms": CS.time_ms(call, REPS), "device_ms": device_ms, "passes": passes,
+                                  "device_ms_from": "profiler" if pass_ms is not None else "cuda events"}
         finally:
             _build._fns[lib], K.K9_K = saved_fn, saved_k
         line["card"] = card
