@@ -72,9 +72,15 @@ Phases, each of which fails the run loudly:
 11c. Pippenger: ``MsmEngine(window=13).msm_points`` at 65,536 points (K9,
     K10) equal to ``accel.msm`` by encoding and to pyref at 64 points, K9
     on a window whose lanes all share one digit, each call of K9 (all its
-    passes) and K10 held to its plain version, K9's passes, threads, longest
-    walk and device ms against its bound at 65,536 and on the skewed
-    lanes, the call's time beside ``accel.msm``'s;
+    passes) and K10 held to its plain version, K10 also on one window (and
+    ``_window_sum`` at 64 points against pyref), K9's passes, threads,
+    longest walk and device ms against its bound at 65,536 and on the
+    skewed lanes; K10's two launches equal, its device ms whole, of phase 1
+    alone (a launch without the Horner chain) and of phase 1 then the chain
+    (no overlap), and the chain's latency floor: its rounds at the round
+    latency of K10's own steps on one quad (``k10_rounds``, held to its
+    plain version); the call's time beside ``accel.msm``'s and its
+    ``msm.*`` spans;
 11d. roofline probes: the probe scripts (python -m xelis_he_tpu_torch.scripts.
     bench_roofline, bench_fe13, bench_qtile) at 16,384, 131,072 and
     1,048,576 lanes and launches of ~2 ms: K11's u32 and wide multiply-add
@@ -105,11 +111,12 @@ card's name and power limit as nvidia-smi prints them, and {"ok": true,
 "device": {...}}.  Long logs go to chiprun_out/.  Without a CUDA device, or
 outside a checkout of the repository, it exits non-zero and prints no result.
 
-With ``--kernels-from DIR`` it only times K1-K9 of the port checked out at
+With ``--kernels-from DIR`` it only times K1-K10 of the port checked out at
 DIR (for instance a ``git archive`` of an earlier commit) at the main path's
 largest shapes, K7 also at a count that fills the card, K8 on 16 decode
-rounds of 8,193 lanes (one launch or sixteen, as the tree's K8 takes them)
-and K9 on the digits of 65,536 scalars (all its launches), on inputs made
+rounds of 8,193 lanes (one launch or sixteen, as the tree's K8 takes them),
+K9 on the digits of 65,536 scalars (all its launches) and K10 on K9's
+buckets, on inputs made
 from ``--seed``, with a digest of each output, then the entry points that
 call K8 and K9 on the host's clock (the l1 = 22 table, a decode that hits
 in its first round, a full walk of [0, 2^44), ``msm_points`` at 65,536
@@ -1438,6 +1445,7 @@ def pippenger_path(rng: random.Random, txs, accel, clock_hz, n: int = 65_536):
     held to their plain versions)."""
     import torch
 
+    from xelis_he_tpu_torch.metrics import metrics
     from xelis_he_tpu_torch.ops import kernels as K
     from xelis_he_tpu_torch.ops.curve import Curve
     from xelis_he_tpu_torch.ops.fe import Field
@@ -1489,11 +1497,85 @@ def pippenger_path(rng: random.Random, txs, accel, clock_hz, n: int = 65_536):
     errs["window_sums"].append(expect_equal("K10 on those buckets", total, K.window_sums_plain(buckets)))
     if bytes(K.compress(total).cpu().numpy()[0]) != multiscalar_mul(skew, pts[:skew_n]).compress():
         raise AssertionError("K9 and K10 disagree with pyref when one bucket holds most lanes")
+    # K10 on one window: the main call's lowest window, and the engine's
+    # _window_sum at 64 points against pyref
+    main = recs["window_sums"].args[0]
+    one = main[:1].contiguous()
+    errs["window_sums"].append(expect_equal(f"K10 on one window of {n} points ({K.k10_shape(1, 13)[0]} pieces)",
+                                            K.window_sums(one), K.window_sums_plain(one)))
+    # K10's Horner steps alone on one quad, from a bucket sum of the main call
+    W = main.shape[0]
+    point = main[0, :1].contiguous()
+    errs["window_sums"].append(expect_equal(f"K10's chain rounds on one quad ({W - 1} windows of 13)",
+                                            K.k10_rounds(point, 13, W - 1), K.k10_rounds_plain(point, 13, W - 1)))
+    d = decompose_digits(scal[:64], 13)[0]
+    got = engine._window_sum(engine.curve.from_points(pts[:64]), d)
+    if engine.curve.to_points(tuple(c[None] for c in got))[0] != multiscalar_mul([int(x) for x in d], pts[:64]):
+        raise AssertionError("MsmEngine._window_sum disagrees with pyref at 64 points")
     out = {"points": n, "window": 13, "msm_points_ms": host_ms(lambda: engine.msm_points(scal, pts)),
-           "accel_msm_ms": host_ms(lambda: accel.msm(scal, pts)), "k9": k9, "k9_skewed": skew_k9}
+           "accel_msm_ms": host_ms(lambda: accel.msm(scal, pts)), "k9": k9, "k9_skewed": skew_k9,
+           "k10": k10_figures(main, clock_hz)}
+    out["k10"]["floor"] = k10_floor(point, W, 13)
+    out["k10"]["share_of_floor"] = out["k10"]["floor"]["floor_ms"] / out["k10"]["ms"]
+    log(f"  K10's chain floor {out['k10']['floor']['floor_ms']:.4f} ms ({out['k10']['floor']['rounds']} quad rounds "
+        f"at {out['k10']['floor']['round_us']:.4f} us, K10's own steps on one quad; ms of 1, 2, 4 and 8 chains "
+        f"{json.dumps(out['k10']['floor']['chains_ms'])}); K10 at "
+        f"{100 * out['k10']['share_of_floor']:.1f}% of it, the chain inside K10 at "
+        f"{100 * out['k10']['floor']['floor_ms'] / out['k10']['chain_ms']:.1f}%")
     log(f"  msm_points at {n} points: {out['msm_points_ms']:.1f} ms a call, accel.msm {out['accel_msm_ms']:.1f} ms "
         f"(host clock, median of 3, host decomposition and point rows included)")
+    metrics.reset()
+    engine.msm_points(scal, pts)
+    out["msm_points_spans_ms"] = {k: v * 1e3 for k, v in metrics.snapshot()["span_seconds"].items()}
+    log(f"  msm_points's spans, ms (host clock; msm.pull holds the wait for the card): "
+        f"{json.dumps(out['msm_points_spans_ms'])}")
     return ({k: launches[k] for k in names}, recs, out, {k: worst(*v) for k, v in errs.items()})
+
+
+def k10_figures(buckets, clock_hz, shape=None) -> dict:
+    """K10 on ``buckets`` (W, 2^c - 1, 4, 18) at ``shape`` (pieces a window,
+    quads a piece; default ``k10_shape``): two launches' rows equal (every
+    sum in an order the indices fix), the device ms of the whole kernel, of
+    phase 1 alone (a launch without the Horner chain) and of phase 1 then
+    the chain (a launch whose chain waits on every window first: their
+    difference is the chain as it runs inside K10)."""
+    import torch
+
+    from xelis_he_tpu_torch.ops import kernels as K
+
+    W, nb = buckets.shape[0], buckets.shape[1] + 1
+    shape = shape or K.k10_shape(W, nb.bit_length() - 1)
+    first, again = K.window_sums(buckets, shape), K.window_sums(buckets, shape)
+    if not torch.equal(first, again):
+        raise AssertionError(f"K10 at {shape}: two launches on the same buckets give different rows")
+    fn = KERNELS["window_sums"][2]
+    out = {"shape": f"{W} windows of {nb - 1} buckets", "pieces_quads": list(shape), "deterministic": True,
+           "ms": device_ms(lambda: K.window_sums(buckets, shape), fn),
+           "phase1_ms": device_ms(lambda: K.window_sums(buckets, shape, "phase1"), fn),
+           "serial_ms": device_ms(lambda: K.window_sums(buckets, shape, "serial"), fn),
+           "bound_ms": bound("window_sums", (buckets,), clock_hz)[1]}
+    out["chain_ms"] = out["serial_ms"] - out["phase1_ms"]
+    log(f"  K10 at {out['shape']}, {shape} (pieces, quads): two launches equal; {out['ms']:.4f} ms on the "
+        f"device, phase 1 alone {out['phase1_ms']:.4f} ms, phase 1 then the chain {out['serial_ms']:.4f} ms "
+        f"(the chain {out['chain_ms']:.4f} ms), ops bound {out['bound_ms']:.5f} ms")
+    return out
+
+
+def k10_floor(point, W: int, c: int) -> dict:
+    """The latency floor of K10's Horner chain over W windows of c bits: its
+    2 (W - 1) (c + 1) dependent quad rounds at the latency of a round of
+    K10's own steps on one quad with nothing to wait on or load
+    (``k10_rounds`` from ``point``).  Device ms of the chain's steps 1, 2, 4
+    and 8 times over; the floor is the slope between the two longest runs
+    (4 chains' worth of rounds), which leaves out the launch,
+    the point's load and the rows' write."""
+    from xelis_he_tpu_torch.ops import kernels as K
+
+    ms = {k: device_ms(lambda k=k: K.k10_rounds(point, c, k * (W - 1)), "k10_rounds_kernel") for k in (1, 2, 4, 8)}
+    rounds = 2 * (W - 1) * (c + 1)
+    floor = (ms[8] - ms[4]) / 4
+    return {"rounds": rounds, "chains_ms": {str(k): v for k, v in ms.items()}, "floor_ms": floor,
+            "round_us": floor * 1e3 / rounds}
 
 
 def pass_ms(fn, kernel: str, launches: int, reps: int = 5) -> list[float] | None:
@@ -1924,8 +2006,9 @@ def kernels_from(root: pathlib.Path, seed: int) -> dict:
     from 1,024 valid encodings through K1, K4's from K2's slot sums, so Z !=
     1), with a digest of each kernel's output (K1's rows and flags, K4's
     bytes, K7's rows, the others' sums encoded by the running tree's K4),
-    which any two commits must share; K8, K9 and the entry points that call
-    them (``end_to_end``); ptxas's figures of K1, K4 and K6-K10 and one
+    which any two commits must share; K8, K9, K10 (on K9's output; its
+    digest is of the encoding) and the entry points that call them
+    (``end_to_end``); ptxas's figures of K1, K4 and K6-K10 and one
     fe_sq's SASS instruction mix of K1 and K4 as that tree builds them."""
     import hashlib
 
@@ -2007,12 +2090,17 @@ def kernels_from(root: pathlib.Path, seed: int) -> dict:
 
     k9_rows = pick(pool, 65_536)
     k9_order, k9_offsets = bucket_runs(decompose_digits([rng.randrange(L) for _ in range(65_536)], 13), 13, device)
+    k10_in = K.bucket_sums(k9_rows, k9_order, k9_offsets)
     for name, shape, fn in (("add_compress", "16 rounds of 8193 lanes", k8_rounds),
                             ("bucket_sums", "65536 lanes, window 13",
-                             lambda: K.bucket_sums(k9_rows, k9_order, k9_offsets))):
+                             lambda: K.bucket_sums(k9_rows, k9_order, k9_offsets)),
+                            ("window_sums", "20 windows of 8191 buckets (K9's on 65536 lanes)",
+                             lambda: K.window_sums(k10_in))):
         before = K.launches[name]
         res = fn()
         per_call = K.launches[name] - before
+        if name == "window_sums":  # trees that add in other orders share the point, not its rows
+            res = K.compress(res)
         out[f"{name} at {shape}"] = {"ms": device_ms(fn, KERNELS[name][2]) * per_call, "launches": per_call,
                                      "call_ms": call_ms(fn, 10), "digest": digest(res)}
     out.update(end_to_end(rng, encs, device))
@@ -2072,7 +2160,7 @@ def main() -> int:
     ap.add_argument("--iters", type=int, default=3, help="timed verifies of the block")
     ap.add_argument("--seed", type=int, default=1, help="seed of the kernel inputs")
     ap.add_argument("--kernels-from", type=pathlib.Path, default=None, metavar="DIR",
-                    help="only time K1-K9 of the port checked out at DIR")
+                    help="only time K1-K10 of the port checked out at DIR")
     args = ap.parse_args()
 
     import torch
@@ -2107,11 +2195,13 @@ def main() -> int:
     # spills; K6's, K7's, K9's and K10's figures beside them
     builds = {}
     block_threads = {"decompress": 128, "compress": 128, "windowed_lanes_k8_fe15": 32 * K.K6_SPLIT,
-                     "daa_lanes": 32, "add_compress": 32, "bucket_sums": 128, "window_sums": K.K10_THREADS}
+                     "daa_lanes": 32, "add_compress": 32, "bucket_sums": 128,
+                     "window_sums": 4 * K.k10_shape(20, 13)[1]}
     for name in BUILD_FIGURES:
         threads = block_threads[name]
         info = ptxas_info(_build.ptxas_log[LIBS[name]], KERNELS[name][2])
-        info["resident_blocks"] = resident_blocks(info["registers"], threads, info["smem"])
+        dynamic = threads // 4 * K.GE_WORDS * 4 if name == "window_sums" else 0  # K10's buffer, a point a quad
+        info["resident_blocks"] = resident_blocks(info["registers"], threads, info["smem"] + dynamic)
         log(f"  {name}: {json.dumps(info)} at {threads} threads a block")
         if name in ("decompress", "compress", "add_compress") and (info["spill_stores"] or info["spill_loads"]):
             raise AssertionError(f"{name}: ptxas spills registers")

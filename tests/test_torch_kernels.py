@@ -498,9 +498,10 @@ def shim(tmp_path_factory):
     lib.shim_reduce64.argtypes = [vp, vp, i]
     lib.shim_add_compress.argtypes = [vp, vp, vp, vp, i, i, i]
     lib.shim_bucket_pass.argtypes = [vp, vp, vp, vp, vp, vp, i, vp, vp]
-    lib.shim_window_sums.argtypes = [vp, vp, i, i]
+    lib.shim_window_sums.argtypes = [vp, vp, i, i, i, i]
+    lib.shim_k10_rounds.argtypes = [vp, vp, i, i]
     lib.shim_k9_k.restype = i
-    lib.shim_k10_threads.restype = i
+    lib.shim_k10_max_threads.restype = i
     lib.shim_k2_split.restype = i
     lib.shim_k3_sub.restype = i
     lib.shim_k6_split.restype = i
@@ -828,7 +829,7 @@ def test_cuh_add_compress_matches_plain(shim):
 
 # -- K9, K10 --------------------------------------------------------------------
 
-PIP_WINDOW = 10  # 26 windows of 1,023 buckets: K10 at its 256 threads, 4 buckets a chunk
+PIP_WINDOW = 10  # 26 windows of 1,023 buckets: K10 at 8 pieces of 64 quads, 2 buckets a chunk
 
 
 def _pippenger_cases():
@@ -960,25 +961,94 @@ def test_variant_sources_change_only_their_constants(file, values):
         BK.substitute(src, {"K8_MISSING": 1})
 
 
-@pytest.mark.parametrize("case", range(2))
+# K10's cases: (lanes of _pippenger_cases, c, shape or None for k10_shape,
+# one window only): the window of the tests above (8 pieces of 64 quads),
+# several pieces a window at c = 8 given by hand, one window (the engine's
+# _window_sum, on scalars below 2^c) and c = 2 (one piece of 2 quads)
+K10_CASES = {"0": (0, PIP_WINDOW, None, False), "1": (1, PIP_WINDOW, None, False),
+             "c8-g2-q64": (0, 8, (2, 64), False), "c8-g4-q16": (1, 8, (4, 16), False),
+             "c8-one-window": (0, 8, None, True), "c2": (1, 2, None, False)}
+
+
+@pytest.mark.parametrize("case", list(K10_CASES))
 def test_cuh_window_sums_matches_plain_and_pyref(shim, case):
-    """K10's body built for the host, a window's threads stepped between
-    barriers: the plain version's rows, its executed work, and the MSM's
-    encoding as pyref computes it."""
-    assert shim.shim_k10_threads() == K.K10_THREADS
-    scalars, points = list(_pippenger_cases())[case]
+    """K10's body built for the host (each piece's quads stepped between
+    barriers, each window's combine of its pieces, the Horner chain; every
+    quad's roles one after the other): the plain version's rows at the same
+    shape, its executed
+    work, and the MSM's encoding as pyref computes it (and, at several pieces
+    a window, the JAX package's numpy engine)."""
+    from xelis_he_tpu.ops.msm import MsmEngine as JaxMsmEngine
+
+    assert shim.shim_k10_max_threads() == K.K10_MAX_THREADS
+    lanes, c, shape, one_window = K10_CASES[case]
+    scalars, points = list(_pippenger_cases())[lanes]
+    if one_window:
+        scalars = [s % (1 << c) for s in scalars]
     buckets = K.bucket_sums(*(torch.from_numpy(a) if isinstance(a, np.ndarray) else a
-                              for a in _k9_inputs(scalars, points)))
+                              for a in _k9_inputs(scalars, points, c)))
+    if one_window:
+        buckets = buckets[:1].contiguous()
     W = buckets.shape[0]
+    G, Q = shape or K.k10_shape(W, c)
     out = np.zeros((1, 4, 18), np.int32)
     shim.shim_reset_mul_count()
-    shim.shim_window_sums(_ptr(np.ascontiguousarray(buckets.numpy())), _ptr(out), W, PIP_WINDOW)
-    adds, dbls = K.k10_executed(W, PIP_WINDOW)
-    assert _counts(shim) == (adds * K.FIELD_MULS["window_sums"] + dbls * K.DBL_MULS, dbls * K.DBL_SQS)
+    shim.shim_window_sums(_ptr(np.ascontiguousarray(buckets.numpy())), _ptr(out), W, c, G, Q)
+    adds, dbls_t, dbls = K.k10_executed(W, c, shape)
+    assert _counts(shim) == (adds * K.FIELD_MULS["window_sums"] + dbls_t * K.DBL_MULS + dbls * K.DBL_NO_T_MULS,
+                             (dbls_t + dbls) * K.DBL_SQS)
     with plain_calls() as calls:
-        want = K.window_sums(buckets).numpy()
+        want = K.window_sums(buckets, shape).numpy()
     assert calls["window_sums"] == 1
     assert np.array_equal(out, want)
     assert _row_enc(out) == [multiscalar_mul(scalars, points).compress()]
-    # the bound's work: the running-sum method's additions, under what the chunks execute
-    assert K.window_sums_work(W, PIP_WINDOW)[0] <= adds
+    if case == "c8-g4-q16":  # the JAX package's numpy engine too (~10 s a call here)
+        assert _row_enc(out) == [JaxMsmEngine(numpy_curve(), window=c).msm_points(scalars, points).compress()]
+    # the bound's work: the running-sum method's additions and Horner's
+    # doublings, under what the pieces execute
+    work_adds, work_dbls = K.window_sums_work(W, c)
+    assert work_adds <= adds and work_dbls <= dbls_t + dbls
+
+
+@pytest.mark.parametrize("c,n", [(2, 3), (13, 2)])
+def test_cuh_k10_rounds_match_plain_and_pyref(shim, c, n):
+    """K10's chain-rounds aid (window_sums.cu k10_rounds_kernel, the floor
+    of its Horner chain) built for the host, the quad's roles one after the
+    other: the plain version's rows, n c doublings (n of them with T) and n
+    additions, and pyref's point: p times Horner's sum of n + 1 ones in base
+    2^c.  The wrapper refuses a malformed point, c outside 1..24 and n < 1."""
+    p = mul_base(0x5EED + c)
+    rows = torch.from_numpy(np.ascontiguousarray(_rows([p]).view(np.int32)))
+    out = np.zeros((1, 4, 18), np.int32)
+    shim.shim_reset_mul_count()
+    shim.shim_k10_rounds(_ptr(rows.numpy()), _ptr(out), c, n)
+    assert _counts(shim) == (n * (K.FIELD_MULS["window_sums"] + K.DBL_MULS + (c - 1) * K.DBL_NO_T_MULS),
+                             n * c * K.DBL_SQS)
+    assert np.array_equal(out, K.k10_rounds(rows, c, n).numpy())
+    s = 1
+    for _ in range(n):
+        s = (s << c) + 1
+    assert _row_enc(out) == [multiscalar_mul([s], [p]).compress()]
+    for bad in ((rows[0], c, n), (rows, 0, n), (rows, 25, n), (rows, c, 0)):
+        with pytest.raises(ValueError):
+            K.k10_rounds(*bad)
+
+
+def test_k10_shape_fills_the_card_within_its_limits():
+    """k10_shape: the main shape (c = 13, 20 windows) in 320 blocks of 64
+    quads, 8 buckets a quad; one window in 64 pieces; every c from 1 to 24
+    and W from 1 to 256 within what the kernel takes (powers of two, G <= Q,
+    4 Q <= K10_MAX_THREADS, 2 G Q <= 2^c), with W G blocks filling the card
+    twice wherever the limits allow."""
+    assert K.k10_shape(20, 13) == (16, 64) and K.k10_shape(1, 13) == (64, 64)
+    for c in range(1, 25):
+        for W in (1, 2, 20, 26, 256):
+            G, Q = K.k10_shape(W, c)
+            K._check_k10_shape(c, (G, Q))
+            assert W * G >= K.K10_FILL_BLOCKS or 2 * G > Q or 4 * G * Q > 1 << c
+    for bad in ((3, 64), (128, 64), (16, 512), (1, 128), (64, 64)):
+        with pytest.raises(ValueError):
+            K.window_sums(torch.zeros((1, 255, 4, 18), dtype=torch.int32), bad)
+    for part in ("phase1", "serial", "chain"):  # the parts time the card
+        with pytest.raises(ValueError):
+            K.window_sums(torch.zeros((1, 255, 4, 18), dtype=torch.int32), part=part)

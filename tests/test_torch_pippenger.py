@@ -68,6 +68,24 @@ def test_msm_points_matches_numpy_engine_and_pyref(n):
     assert got.compress() == want.compress() == multiscalar_mul(scal, pts).compress()
 
 
+def test_msm_points_records_a_span_for_each_phase():
+    """msm_points's phases are metrics spans, one each a call, and the rest
+    of the call is Python glue (the spans cover most of its time)."""
+    import time
+
+    from xelis_he_tpu_torch.metrics import metrics
+
+    scal, pts = _case(7)
+    metrics.reset()
+    t0 = time.perf_counter()
+    MsmEngine(CURVE, window=8).msm_points(scal, pts)
+    wall = time.perf_counter() - t0
+    snap = metrics.snapshot()
+    names = [f"msm.{k}" for k in ("digits", "points", "bucket_runs", "k9", "k10", "pull")]
+    assert {k: snap["span_counts"].get(k) for k in names} == dict.fromkeys(names, 1)
+    assert 0.5 * wall < sum(snap["span_seconds"][k] for k in names) <= wall
+
+
 def test_msm_points_of_nothing_is_the_identity():
     assert MsmEngine(CURVE, window=8).msm_points([], []).compress() == IDENTITY.compress()
 

@@ -176,40 +176,96 @@ void shim_bucket_pass(const int32_t *rows, const int32_t *order, const ge *in, c
 
 int shim_k9_k(void) { return K9_K; }
 
-// K10 as window_sums.cu runs it: a window's T threads step by step between
-// the block's barriers, then the last block's Horner over the windows
-void shim_window_sums(const int32_t *buckets, int32_t *out, int W, int c) {
-  const int nb = 1 << c, T = nb / 2 < K10_THREADS ? nb / 2 : K10_THREADS, m = nb / T;
-  int log_m = 0;
-  while ((1 << log_m) < m) ++log_m;
-  std::vector<ge> sums(W), buf(T), acc(T), next(T);
-  for (int w = 0; w < W; ++w) {
-    for (int k = 0; k < T; ++k) window_chunk(buf[k], acc[k], buckets + (size_t)w * (nb - 1) * 72, k, m);
-    for (int s = 1; s < T; s <<= 1) {
-      for (int k = 0; k < T; ++k) next[k] = suffix_node(buf.data(), k, s, T);
-      buf = next;
+// K10's steps on a quad whose four roles run one after the other (the
+// kernel's quad_steps without the gathers): the same rounds, so the same
+// values and operations
+struct quad_roles {
+  void add(ge &a, const ge &b) const {
+    fe pr[K7_QUAD], out[K7_QUAD];
+    for (int r = 0; r < K7_QUAD; ++r) add_round1(pr[r], a, b, r);
+    for (int r = 0; r < K7_QUAD; ++r) add_round2(out[r], pr, r);
+    quad_point(a, out);
+  }
+  void add2(ge &a, const ge &b, ge &c, const ge &d) const {
+    const ge before = d;  // round 1 reads d before a is written
+    add(a, b);
+    add(c, before);
+  }
+  void dbl(ge &p, bool want_t) const {
+    fe sq[K7_QUAD], out[K7_QUAD];
+    for (int r = 0; r < K7_QUAD; ++r) dbl_round1(sq[r], p, r);
+    for (int r = 0; r < K7_QUAD; ++r) k10_dbl_round2(out[r], sq, p, r, want_t);
+    quad_point(p, out);
+  }
+};
+
+// window_sums.cu block_weighted over n items, its quads stepped between the
+// block's barriers: (sum, total) of items tot[k], acc[k] of 2^log_s buckets
+static void weighted_steps(std::vector<ge> tot, std::vector<ge> acc, int n, int log_s, ge &sum, ge &total) {
+  const quad_roles steps;
+  std::vector<ge> next(n);
+  for (int s = 1; s < n; s <<= 1) {
+    for (int k = 0; k < n; ++k) next[k] = suffix_node(tot.data(), k, s, n, steps);
+    tot = next;
+  }
+  total = tot[0];
+  ge_identity(tot[0]);
+  for (int h = n / 2; h >= 1; h >>= 1)
+    for (int k = 0; k < h; ++k) tot[k] = suffix_node(tot.data(), k, h, 2 * h, steps);
+  ge x = tot[0];
+  for (int h = n / 2; h >= 1; h >>= 1)
+    for (int k = 0; k < h; ++k) acc[k] = suffix_node(acc.data(), k, h, 2 * h, steps);
+  dbl_n(x, log_s, steps);
+  sum = acc[0];
+  steps.add(sum, x);
+}
+
+// K10 as window_sums.cu runs it at G pieces a window and Q quads a piece:
+// each piece's quads step by step, the combine of each window's pieces,
+// then the Horner chain, every step's roles one after the other
+void shim_window_sums(const int32_t *buckets, int32_t *out, int W, int c, int G, int Q) {
+  const quad_roles steps;
+  int log_g = 0, log_q = 0;
+  while ((1 << log_g) < G) ++log_g;
+  while ((1 << log_q) < Q) ++log_q;
+  const int log_p = c - log_g, log_m = log_p - log_q;
+  std::vector<ge> sums(W), r(Q), acc(Q), piece_sum(G), piece_total(G);
+  for (int w = W - 1; w >= 0; --w) {
+    for (int g = 0; g < G; ++g) {
+      for (int k = 0; k < Q; ++k)
+        window_chunk(r[k], acc[k], buckets + (size_t)w * ((1 << c) - 1) * 72, g * Q + k, 1 << log_m, steps);
+      weighted_steps(r, acc, Q, log_m, piece_sum[g], piece_total[g]);
     }
-    ge_identity(buf[0]);
-    for (int h = T / 2; h >= 1; h >>= 1)
-      for (int k = 0; k < h; ++k) tree_node(buf.data(), k, h);
-    ge x = buf[0];
-    buf = acc;
-    for (int h = T / 2; h >= 1; h >>= 1)
-      for (int k = 0; k < h; ++k) tree_node(buf.data(), k, h);
-    ge_dbl_n(x, log_m);
-    ge y = buf[0];
-    ge_add(y, y, x);
-    sums[w] = y;
+    ge total;
+    if (G == 1) {
+      sums[w] = piece_sum[0];
+    } else {
+      weighted_steps(piece_total, piece_sum, G, log_p, sums[w], total);
+    }
   }
   ge total = sums[W - 1];
   for (int v = W - 2; v >= 0; --v) {
-    ge_dbl_n(total, c);
-    ge_add(total, total, sums[v]);
+    dbl_n(total, c, steps);
+    steps.add(total, sums[v]);
   }
   ge_to_rows(out, total);
 }
 
-int shim_k10_threads(void) { return K10_THREADS; }
+// window_sums.cu k10_rounds_kernel: n times c doublings and one addition of
+// p, from p
+void shim_k10_rounds(const int32_t *p, int32_t *out, int c, int n) {
+  const quad_roles steps;
+  ge a;
+  ge_from_rows(a, p);
+  ge total = a;
+  for (int i = 0; i < n; ++i) {
+    dbl_n(total, c, steps);
+    steps.add(total, a);
+  }
+  ge_to_rows(out, total);
+}
+
+int shim_k10_max_threads(void) { return K10_MAX_THREADS; }
 
 // the 32 x 32 -> 64-bit products of one fe_mul (or fe_sq) on the radix-2^25.5
 // tier or on fe15

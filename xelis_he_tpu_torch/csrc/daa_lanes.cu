@@ -33,14 +33,6 @@ using namespace xhe;
 
 constexpr int BLOCK = 32;  // threads a block: 8 lanes
 
-// out[r] = the value of role r of this thread's quad
-__device__ __forceinline__ void quad_gather(fe out[K7_QUAD], const fe &mine, unsigned mask) {
-#pragma unroll
-  for (int r = 0; r < K7_QUAD; ++r)
-#pragma unroll
-    for (int i = 0; i < 10; ++i) out[r].v[i] = __shfl_sync(mask, mine.v[i], r, K7_QUAD);
-}
-
 __global__ void __launch_bounds__(BLOCK)
     daa_lanes_kernel(const int32_t *__restrict__ pts, const int32_t *__restrict__ bits,
                      int32_t *__restrict__ out, int N) {

@@ -34,6 +34,14 @@
 #define XHE_NOINLINE __host__ __device__ __noinline__
 #endif
 
+// before a template whose steps are device-only on the card (K10's quad
+// steps): nvcc does not check that what it calls runs on the host too
+#ifdef __CUDACC__
+#define XHE_STEPS_TEMPLATE _Pragma("nv_exec_check_disable")
+#else
+#define XHE_STEPS_TEMPLATE
+#endif
+
 #ifdef XHE_COUNT_MULS
 // host-only test hook: counts field multiplications and squarings, and
 // their 32 x 32 -> 64-bit products
@@ -1076,6 +1084,17 @@ static XHE_HD void windowed_lane(int32_t *out, const int32_t *pts, const uint8_t
 
 constexpr int K7_QUAD = 4;  // threads a lane of K7
 
+#ifdef __CUDACC__
+// out[r] = the value of role r of this thread's quad (K7's lanes, K10's
+// Horner chain): the quad's exchange after each round
+static __device__ __forceinline__ void quad_gather(fe out[K7_QUAD], const fe &mine, unsigned mask) {
+#pragma unroll
+  for (int r = 0; r < K7_QUAD; ++r)
+#pragma unroll
+    for (int i = 0; i < 10; ++i) out[r].v[i] = __shfl_sync(mask, mine.v[i], r, K7_QUAD);
+}
+#endif
+
 // h = the r-th of a, b, c, d
 static XHE_HD void fe_pick4(fe &h, int r, const fe &a, const fe &b, const fe &c, const fe &d) {
 #pragma unroll
@@ -1087,24 +1106,35 @@ static XHE_HD bool daa_bit(const int32_t *bits, int N, int i, int k) {
   return ((uint32_t)bits[(size_t)(k >> 5) * N + i] >> (k & 31)) & 1u;
 }
 
+// round 1 of a doubling of p, role r: its squaring of X, Y, Z, X+Y
+static XHE_HD void dbl_round1(fe &sq, const ge &p, int r) {
+  fe u, xy;
+  fe_add(xy, p.X, p.Y);
+  fe_pick4(u, r, p.X, p.Y, p.Z, xy);
+  fe_sq(sq, u);
+}
+
+// round 1 of the addition p + q, role r: its product of (Y1-X1)(Y2-X2),
+// (Y1+X1)(Y2+X2), T1 2d T2, 2Z1 Z2
+static XHE_HD void add_round1(fe &pr, const ge &p, const ge &q, int r) {
+  fe u, v, ymx, ypx, zz, d2;
+  fe_sub(ymx, p.Y, p.X);
+  fe_add(ypx, p.Y, p.X);
+  fe_add(zz, p.Z, p.Z);
+  fe_pick4(u, r, ymx, ypx, p.T, zz);
+  fe_sub(ymx, q.Y, q.X);
+  fe_add(ypx, q.Y, q.X);
+  fe_d2(d2);
+  fe_pick4(v, r, ymx, ypx, d2, q.Z);
+  fe_mul(pr, u, v);
+  if (r == 2) fe_mul(pr, pr, q.T);
+}
+
 // round 1, role r: sq = its squaring of the doubling of base, pr = its
 // product of the addition acc + base
 static XHE_HD void daa_round1(fe &sq, fe &pr, const ge &acc, const ge &base, int r) {
-  fe u, v, xy, d2;
-  fe_add(xy, base.X, base.Y);
-  fe_pick4(u, r, base.X, base.Y, base.Z, xy);
-  fe_sq(sq, u);
-  fe ymx, ypx, zz;
-  fe_sub(ymx, acc.Y, acc.X);
-  fe_add(ypx, acc.Y, acc.X);
-  fe_add(zz, acc.Z, acc.Z);
-  fe_pick4(u, r, ymx, ypx, acc.T, zz);
-  fe_sub(ymx, base.Y, base.X);
-  fe_add(ypx, base.Y, base.X);
-  fe_d2(d2);
-  fe_pick4(v, r, ymx, ypx, d2, base.Z);
-  fe_mul(pr, u, v);
-  if (r == 2) fe_mul(pr, pr, base.T);
+  dbl_round1(sq, base, r);
+  add_round1(pr, acc, base, r);
 }
 
 // E, F, G, H from round 1's four values of one operation, and role r's
@@ -1116,30 +1146,48 @@ static XHE_HD void daa_round2_one(fe &out, const fe &e, const fe &f, const fe &g
   fe_mul(out, u, v);
 }
 
-// round 2, role r, from the quad's round-1 results sq[4] and pr[4]: dbl and
-// add are its coordinates of the doubled base and of acc + base
-static XHE_HD void daa_round2(fe &dbl, fe &add, const fe sq[4], const fe pr[4], int r) {
+// round 2 of a doubling, role r: its coordinate of the double, from the
+// quad's round-1 squarings sq[4] (ge_dbl's a, b, c, (X+Y)^2)
+static XHE_HD void dbl_round2(fe &out, const fe sq[4], int r) {
   fe c, e, f, g, h;
-  fe_add(c, sq[2], sq[2]);  // ge_dbl: a, b, c, (X+Y)^2 = sq[0..3]
+  fe_add(c, sq[2], sq[2]);
   fe_add(h, sq[0], sq[1]);
   fe_sub(e, h, sq[3]);
   fe_sub(g, sq[0], sq[1]);
   fe_add(f, c, g);
-  daa_round2_one(dbl, e, f, g, h, r);
-  fe_sub(e, pr[1], pr[0]);  // ge_add: a, b, c, d = pr[0..3]
+  daa_round2_one(out, e, f, g, h, r);
+}
+
+// round 2 of an addition, role r: its coordinate of the sum, from the
+// quad's round-1 products pr[4] (ge_add's a, b, c, d)
+static XHE_HD void add_round2(fe &out, const fe pr[4], int r) {
+  fe e, f, g, h;
+  fe_sub(e, pr[1], pr[0]);
   fe_sub(f, pr[3], pr[2]);
   fe_add(g, pr[3], pr[2]);
   fe_add(h, pr[1], pr[0]);
-  daa_round2_one(add, e, f, g, h, r);
+  daa_round2_one(out, e, f, g, h, r);
+}
+
+// round 2, role r, from the quad's round-1 results sq[4] and pr[4]: dbl and
+// add are its coordinates of the doubled base and of acc + base
+static XHE_HD void daa_round2(fe &dbl, fe &add, const fe sq[4], const fe pr[4], int r) {
+  dbl_round2(dbl, sq, r);
+  add_round2(add, pr, r);
+}
+
+// p = the point whose coordinates roles 0..3 computed in round 2
+static XHE_HD void quad_point(ge &p, const fe v[4]) {
+  p.X = v[0];
+  p.Y = v[1];
+  p.Z = v[2];
+  p.T = v[3];
 }
 
 // the end of a step, from the quad's round-2 results: base doubled, acc
 // replaced by acc + base where the bit is set
 static XHE_HD void daa_step_end(ge &acc, ge &base, const fe dbl[4], const fe add[4], bool bit) {
-  base.X = dbl[0];
-  base.Y = dbl[1];
-  base.Z = dbl[2];
-  base.T = dbl[3];
+  quad_point(base, dbl);
   fe_select(acc.X, bit, add[0], acc.X);
   fe_select(acc.Y, bit, add[1], acc.Y);
   fe_select(acc.Z, bit, add[2], acc.Z);
@@ -1264,46 +1312,88 @@ static XHE_HD void bucket_block(int32_t *out, ge *blocks, ge *stack, long long t
 }
 
 // -- K10: the windows' weighted bucket sums, then Horner over the windows.
-// Window w's buckets 1 .. 2^c - 1 are cut into T chunks of m = 2^c / T
-// buckets (bucket 0, the dropped digit, is the first of chunk 0 and is never
-// read).  Thread k walks its chunk from the top: r runs over the suffix sums
-// and acc adds them, so acc_k = sum_j j S_{k m + j} and r ends at the chunk's
-// total T_k.  Then sum_b b S_b = sum_k acc_k + m sum_k k T_k, and
-// sum_k k T_k = sum_{k >= 1} R_k with R_k = sum_{j >= k} T_j.
+// Window w's buckets 1 .. 2^c - 1 are cut into G pieces of P = 2^c / G
+// buckets and each piece into Q chunks of m = P / Q (bucket 0, the dropped
+// digit, is the first of the window's chunk 0 and is never read).  Chunk k
+// of a window is walked from the top: r runs over the suffix sums and acc
+// adds them, so acc_k = sum_j j S_{k m + j} and r ends at the chunk's total
+// T_k.  The same identity then serves twice, over the Q chunks of a piece
+// and over the G pieces of a window: n items of s buckets each, with
+// totals T_i and local weighted sums A_i, have
+//   sum_b b S_b = sum_i A_i + s sum_i i T_i,  sum_i i T_i = sum_{i >= 1} R_i,
+// R_i = sum_{j >= i} T_j, and R_0 is their total.
+//
+// On the card every point operation of K10 runs on a quad of threads with
+// K7's rounds; the host build runs the same steps role by role.  The steps
+// are a template argument: add(a, b) sets a = a + b, add2(a, b, c, d) sets
+// a = a + b and c = c + d from the values before either (one pair of
+// rounds for both), dbl(p, want_t) doubles p (T only where want_t).
 
-constexpr int K10_THREADS = 256;  // threads a window of K10, at most
+constexpr int K10_MAX_THREADS = 256;  // threads of a K10 block, at most (its launch bound)
 
-// thread k's chunk of a window whose bucket b (1 <= b < 2^c) is at
-// buckets + 72 (b - 1); m >= 2
-static XHE_HD void window_chunk(ge &r, ge &acc, const int32_t *buckets, int k, int m) {
-  const size_t first = (size_t)k * m;  // bucket k m + j is at row first + j - 1
-  ge s;
-  ge_from_rows(r, buckets + 72 * (first + m - 2));
+// chunk k of a window whose bucket b (1 <= b < 2^c) is at buckets + 72 (b -
+// 1); m >= 2.  The walk is the running sum's, r = r + S_j then acc = acc +
+// r for j = m - 2 .. 1 (and r = r + S_0 after the window's chunk 0), with
+// each acc addition paired with the next r addition, which reads the same
+// r: m - 1 steps, each step's bucket read during the step before it.  m is
+// a power of two, so m > 2 means m >= 4.
+XHE_STEPS_TEMPLATE
+template <class Steps>
+static XHE_HD void window_chunk(ge &r, ge &acc, const int32_t *buckets, int k, int m, const Steps &steps) {
+  auto bucket = [&](ge &p, int j) { ge_from_rows(p, buckets + 72 * ((size_t)k * m + j - 1)); };  // S_{k m + j}
+  ge s, ahead;
+  bucket(r, m - 1);
   acc = r;
+  if (m == 2) {
+    if (k > 0) {
+      bucket(s, 0);
+      steps.add(r, s);
+    }
+    return;
+  }
+  bucket(s, m - 2);
+  bucket(ahead, m - 3);
+  steps.add(r, s);
 #pragma unroll 1
-  for (int j = m - 2; j >= 1; --j) {
-    ge_from_rows(s, buckets + 72 * (first + j - 1));
-    ge_add(r, r, s);
-    ge_add(acc, acc, r);
+  for (int j = m - 3; j >= 1; --j) {
+    s = ahead;
+    if (j > 1 || k > 0) bucket(ahead, j - 1);
+    steps.add2(r, s, acc, r);
   }
   if (k > 0) {
-    ge_from_rows(s, buckets + 72 * (first - 1));
-    ge_add(r, r, s);
+    steps.add2(r, ahead, acc, r);
+  } else {
+    steps.add(acc, r);
   }
 }
 
-// one level of the suffix scan over buf[0 .. n): thread k's new value,
-// buf[k] + buf[k + s] (buf[k] where k + s is past the end)
-static XHE_HD ge suffix_node(const ge *buf, int k, int s, int n) {
+// buf[k] + buf[k + s] (buf[k] where k + s >= n): a level of the suffix scan
+// over buf[0 .. n), and with n = 2 s a level of a tree
+XHE_STEPS_TEMPLATE
+template <class Steps>
+static XHE_HD ge suffix_node(const ge *buf, int k, int s, int n, const Steps &steps) {
   ge v = buf[k];
-  if (k + s < n) ge_add(v, v, buf[k + s]);
+  if (k + s < n) steps.add(v, buf[k + s]);
   return v;
 }
 
-// 2^n p, by n doublings
-static XHE_HD void ge_dbl_n(ge &p, int n) {
+// 2^n p, by n >= 1 doublings: T only on the last, which an addition reads
+XHE_STEPS_TEMPLATE
+template <class Steps>
+static XHE_HD void dbl_n(ge &p, int n, const Steps &steps) {
 #pragma unroll 1
-  for (int i = 0; i < n; ++i) ge_dbl(p, p, true);
+  for (int i = 1; i <= n; ++i) steps.dbl(p, i == n);
+}
+
+// round 2 of a doubling for role r (dbl_round2) where want_t; a doubling
+// that another doubling follows leaves T as it was (ge_dbl's want_t), so
+// role 3 keeps its T there
+static XHE_HD void k10_dbl_round2(fe &out, const fe sq[4], const ge &p, int r, bool want_t) {
+  if (want_t || r != 3) {
+    dbl_round2(out, sq, r);
+  } else {
+    out = p.T;
+  }
 }
 
 }  // namespace xhe

@@ -41,12 +41,16 @@ SIGNATURES = {
     "daa_lanes": ("xhe_daa_lanes", [_vp, _vp, _vp, _int, _vp]),
     "add_compress": ("xhe_add_compress", [_vp, _vp, _vp, _vp, _int, _int, _int, _vp]),
     "bucket_sums": ("xhe_bucket_sums", [_vp, _vp, _vp, _vp, _vp, _vp, _int, _int, _vp, _vp, _vp]),
-    "window_sums": ("xhe_window_sums", [_vp, _vp, _vp, _vp, _int, _int, _vp]),
+    "window_sums": ("xhe_window_sums", [_vp, _vp, _vp, _vp, _vp, _int, _int, _int, _int, _int, _vp]),
+    "k10_rounds": ("xhe_k10_rounds", [_vp, _vp, _int, _int, _vp]),
     "probe_imad": ("xhe_probe_imad", [_vp, _vp, _vp, _int, _int, _int, _vp]),
     "probe_mul15": ("xhe_probe_mul15", [_vp, _vp, _vp, _int, _int, _int, _vp]),
     "probe_mul13": ("xhe_probe_mul13", [_vp, _vp, _vp, _int, _int, _int, _vp]),
     "probe_fe": ("xhe_probe_fe", [_vp, _vp, _vp, _int, _int, _int, _int, _vp]),
 }
+
+# entries that live in another kernel's library (K10's chain-rounds timing aid)
+LIBRARY = {"k10_rounds": "window_sums"}
 
 _lock = threading.Lock()
 _fns: dict[str, ctypes._CFuncPtr] = {}
@@ -115,7 +119,7 @@ def kernel_fn(name: str):
             if not _fns:
                 out = build_all()
                 for kname, (sym, argtypes) in SIGNATURES.items():
-                    f = getattr(ctypes.CDLL(str(out / f"lib{kname}.so")), sym)
+                    f = getattr(ctypes.CDLL(str(out / f"lib{LIBRARY.get(kname, kname)}.so")), sym)
                     f.argtypes = argtypes
                     f.restype = ctypes.c_int
                     _fns[kname] = f

@@ -78,7 +78,8 @@ def reset_launches() -> None:
 # per tile), point, lane and sum.  K7's work depends on its scalars: the entry is
 # the 253 doublings of a lane, and every set bit adds DAA_MULS_PER_SET_BIT.
 # K9's and K10's items are point additions (``bucket_additions``,
-# ``window_sums_work``); K10's doublings add DBL_MULS / DBL_SQS each.
+# ``window_sums_work``); K10's doublings add DBL_MULS / DBL_SQS each (a
+# doubling that another doubling follows skips T: DBL_NO_T_MULS).
 FIELD_MULS = {"decompress": 28, "windowed_lanes_k8": 5336, "tile_sums": 9, "compress": 32,
               "windowed_lanes": 1451, "windowed_lanes_k8_fe15": 5336, "daa_lanes": 1012, "add_compress": 41,
               "bucket_sums": 9, "window_sums": 9}
@@ -87,11 +88,17 @@ FIELD_SQS = {"decompress": 256, "windowed_lanes_k8": 1152, "tile_sums": 0, "comp
              "bucket_sums": 0, "window_sums": 0}
 DAA_MULS_PER_SET_BIT = 9
 DBL_MULS, DBL_SQS = 4, 4  # a doubling with T (ge_dbl)
+DBL_NO_T_MULS = 3  # a doubling without T
 # lanes of a K8 launch that keep every SM of the card busy (csrc/add_compress.cu):
 # a par_decode group runs this many lanes' worth of rounds
 K8_FILL_LANES = 1 << 17
 K9_K = 4  # log2 of the positions a thread of K9 walks in a pass (csrc/ed25519.cuh K9_K)
-K10_THREADS = 256  # threads a window of K10, at most (csrc/ed25519.cuh)
+# K10's shape (k10_shape): quads of threads a piece at most, the kernel's
+# launch bound in threads (csrc/ed25519.cuh K10_MAX_THREADS), and the
+# blocks that fill the 132 SMs of an H100 twice
+K10_QUADS = 64
+K10_MAX_THREADS = 256
+K10_FILL_BLOCKS = 2 * 132
 # Issue slots of a 32 x 32 -> 64-bit multiply-add (IMAD.WIDE.U32 and the
 # additions of its 64-bit sum) in 32-bit multiply-adds: K11's wide form, an
 # IMAD.WIDE.U32 and an IADD3 a step, runs at 1/2.55 of its u32 form's rate
@@ -216,17 +223,51 @@ def window_sums_work(windows: int, c: int) -> tuple[int, int]:
     return windows * 2 * ((1 << c) - 2) + windows - 1, (windows - 1) * c
 
 
-def k10_executed(windows: int, c: int) -> tuple[int, int]:
-    """(additions, doublings) K10 executes: T chunks of m buckets a window
-    (2 (m - 2) additions each and one more for the chunk's bottom bucket
-    after chunk 0), the suffix scan and two trees over T slots, log2 m
-    doublings and one addition; then Horner."""
+def k10_shape(windows: int, c: int) -> tuple[int, int]:
+    """K10's (pieces a window G, quads a piece Q), powers of two: Q =
+    K10_QUADS (fewer at small c), a chunk of buckets a quad, and G doubled
+    from 1 until W G blocks fill the card twice, while G <= Q (the pieces'
+    combine takes a quad a piece) and each chunk keeps at least 2 buckets (2
+    G Q <= 2^c).  At c = 13: (16, 64) for W = 20, (64, 64) for W = 1."""
     nb = 1 << c
-    T = min(K10_THREADS, nb // 2)
-    m = nb // T
-    scan = sum(T - s for s in (1 << i for i in range(T.bit_length() - 1)))
-    adds = T * 2 * (m - 2) + (T - 1) + scan + 2 * (T - 1) + 1
-    return windows * adds + windows - 1, windows * (m.bit_length() - 1) + (windows - 1) * c
+    Q = min(K10_QUADS, nb // 2)
+    G = 1
+    while windows * G < K10_FILL_BLOCKS and 2 * G <= Q and 4 * G * Q <= nb:
+        G *= 2
+    return G, Q
+
+
+def _check_k10_shape(c: int, shape: tuple[int, int]) -> None:
+    G, Q = shape
+    if G < 1 or G & (G - 1) or Q < G or Q & (Q - 1) or 4 * Q > K10_MAX_THREADS or 2 * G * Q > 1 << c:
+        raise ValueError(f"K10 shape {shape} at c = {c}: want powers of two G <= Q <= {K10_MAX_THREADS // 4}, "
+                         f"2 G Q <= 2^c")
+
+
+def _weighted_adds(n: int) -> int:
+    """Additions of K10's weighted sum over n items: the suffix scan, the
+    tree of its sums (slot 0 the identity), the tree of the acc, one more."""
+    return sum(n - s for s in (1 << i for i in range(n.bit_length() - 1))) + 2 * (n - 1) + 1
+
+
+def k10_executed(windows: int, c: int, shape: tuple[int, int] | None = None) -> tuple[int, int, int]:
+    """(additions, doublings with T, doublings without T) K10 executes at
+    ``shape`` (default ``k10_shape``): G Q chunks of m buckets a window (2
+    (m - 2) additions each and one more for the chunk's bottom bucket after
+    the window's chunk 0), each piece's weighted sum over its Q chunks with
+    log2 m doublings, the window's over its G pieces with log2 (2^c / G)
+    (none at G = 1); then Horner, c doublings and one addition a window
+    after the first.  Only a doubling that an addition follows computes T."""
+    G, Q = shape or k10_shape(windows, c)
+    n, log_p = G * Q, c - (G.bit_length() - 1)
+    log_m = log_p - (Q.bit_length() - 1)
+    adds = n * 2 * ((1 << log_m) - 2) + n - 1 + G * _weighted_adds(Q)
+    dbls = [G, G * (log_m - 1)]
+    if G > 1:
+        adds += _weighted_adds(G)
+        dbls = [dbls[0] + 1, dbls[1] + log_p - 1]
+    return (windows * adds + windows - 1, windows * dbls[0] + windows - 1,
+            windows * dbls[1] + (windows - 1) * (c - 1))
 
 
 def muladds(name: str, items: int, set_bits: int = 0, doublings: int = 0) -> int:
@@ -472,20 +513,44 @@ def bucket_sums_plain(rows: torch.Tensor, order: torch.Tensor, offsets: torch.Te
     return out
 
 
-def window_sums_plain(buckets: torch.Tensor) -> torch.Tensor:
-    """K10's function in its order: per window, T chunks of m buckets walked
-    from the top (suffix sums r, their sum acc), the suffix scan of the
-    chunks' totals, its tree with slot 0 the identity, log2 m doublings, the
-    tree of the acc and one addition; then Horner over the windows from the
-    top, c doublings and one addition each.  (W, 2^c - 1, 4, 18) -> (1, 4, 18)."""
+def _weighted_plain(cv: Curve, tot, acc, log_s: int):
+    """K10's weighted sum over the n items of the leading axis, each of
+    2^log_s buckets with total tot_k and local weighted sum acc_k: (sum_k
+    acc_k + 2^log_s sum_k k tot_k, sum_k tot_k), by the steps of
+    csrc/window_sums.cu block_weighted: the suffix scan of the totals (its
+    slot 0 the total), their tree with slot 0 the identity, log2 s
+    doublings, the tree of the acc and one addition."""
+    n, s = tot[0].shape[0], 1
+    while s < n:
+        head = cv.add(tuple(x[: n - s] for x in tot), tuple(x[s:] for x in tot))
+        tot = tuple(torch.cat([h, x[n - s :]]) for h, x in zip(head, tot))
+        s *= 2
+    total = tuple(x[0] for x in tot)
+    ident = cv.identity((1, *total[0].shape[:-1]))
+    x = _tree_reduce(cv, tuple(torch.cat([i, t[1:]]) for i, t in zip(ident, tot)), n)
+    for i in range(log_s):
+        x = cv.double(x, want_t=i == log_s - 1)
+    return cv.add(_tree_reduce(cv, acc, n), x), total
+
+
+def window_sums_plain(buckets: torch.Tensor, shape: tuple[int, int] | None = None) -> torch.Tensor:
+    """K10's function in its order at ``shape`` (G pieces a window, Q quads
+    a piece; default ``k10_shape``): per window, G Q chunks of m buckets
+    walked from the top (suffix sums r, their sum acc), each piece's
+    weighted sum over its Q chunks and the window's over its G pieces
+    (``_weighted_plain``); then Horner over the windows from the top, c
+    doublings (T on the last) and one addition each.  (W, 2^c - 1, 4, 18)
+    -> (1, 4, 18)."""
     cv = _curve(buckets.device)
     W, nb = buckets.shape[0], buckets.shape[1] + 1
     c = nb.bit_length() - 1
-    T = min(K10_THREADS, nb // 2)
-    m = nb // T
+    G, Q = shape or k10_shape(W, c)
+    _check_k10_shape(c, (G, Q))
+    n = G * Q
+    m = nb // n
     ident = cv.identity((W, 1))
     # bucket b of chunk k = b // m at [:, k, b % m]; bucket 0 (the identity) is never read
-    full = tuple(torch.cat([i, s], dim=1).reshape(W, T, m, NLIMBS) for i, s in zip(ident, rows_to_point(buckets)))
+    full = tuple(torch.cat([i, s], dim=1).reshape(W, n, m, NLIMBS) for i, s in zip(ident, rows_to_point(buckets)))
 
     def bucket(j):
         return tuple(f[:, :, j] for f in full)
@@ -495,24 +560,39 @@ def window_sums_plain(buckets: torch.Tensor) -> torch.Tensor:
     for j in range(m - 2, 0, -1):
         r = cv.add(r, bucket(j))
         acc = cv.add(acc, r)
-    not_first = (torch.arange(T, device=buckets.device) > 0)[None, :].expand(W, T)
+    not_first = (torch.arange(n, device=buckets.device) > 0)[None, :].expand(W, n)
     r = cv.select(not_first, cv.add(r, bucket(0)), r)
-    s = 1
-    while s < T:
-        head = cv.add(tuple(x[:, : T - s] for x in r), tuple(x[:, s:] for x in r))
-        r = tuple(torch.cat([h, x[:, T - s :]], dim=1) for h, x in zip(head, r))
-        s *= 2
-    r = tuple(torch.cat([i, x[:, 1:]], dim=1) for i, x in zip(ident, r))  # slot 0: the identity
-    x = _tree_reduce(cv, tuple(v.transpose(0, 1) for v in r), T)
-    for _ in range(m.bit_length() - 1):
-        x = cv.double(x)
-    wsum = cv.add(_tree_reduce(cv, tuple(v.transpose(0, 1) for v in acc), T), x)
-    total = tuple(v[W - 1] for v in wsum)
+
+    def chunks_first(p):  # (W, G, Q) chunks -> Q leading: a piece's chunks are the items
+        return tuple(x.reshape(W, G, Q, NLIMBS).permute(2, 0, 1, 3) for x in p)
+
+    log_p = c - (G.bit_length() - 1)
+    wsum, total = _weighted_plain(cv, chunks_first(r), chunks_first(acc), log_p - (Q.bit_length() - 1))
+    if G > 1:  # the pieces are the items: (G, W)
+        wsum, _ = _weighted_plain(cv, tuple(x.transpose(0, 1) for x in total),
+                                  tuple(x.transpose(0, 1) for x in wsum), log_p)
+    else:
+        wsum = tuple(x[:, 0] for x in wsum)
+    out = tuple(v[W - 1] for v in wsum)
     for w in range(W - 2, -1, -1):
-        for _ in range(c):
-            total = cv.double(total)
-        total = cv.add(total, tuple(v[w] for v in wsum))
-    return point_to_rows(total, cv.fe).to(torch.int32)[None]
+        for i in range(c):
+            out = cv.double(out, want_t=i == c - 1)
+        out = cv.add(out, tuple(v[w] for v in wsum))
+    return point_to_rows(out, cv.fe).to(torch.int32)[None]
+
+
+def k10_rounds_plain(point: torch.Tensor, c: int, n: int) -> torch.Tensor:
+    """K10's chain-rounds aid: from the point p of (1, 4, 18) rows, n times
+    c doublings (T on the last) and one addition of p; (1, 4, 18) rows of
+    (Horner's sum of n + 1 ones in base 2^c) p."""
+    cv = _curve(point.device)
+    p = rows_to_point(point)
+    out = p
+    for _ in range(n):
+        for i in range(c):
+            out = cv.double(out, want_t=i == c - 1)
+        out = cv.add(out, p)
+    return point_to_rows(out, cv.fe).to(torch.int32)
 
 
 # ---------------------------------------------------------------------------
@@ -749,19 +829,49 @@ def bucket_sums(rows: torch.Tensor, order: torch.Tensor, offsets: torch.Tensor) 
     return out
 
 
-def window_sums(buckets: torch.Tensor) -> torch.Tensor:
+K10_MODES = {"phase1": 0, "whole": 1, "serial": 2}  # csrc/window_sums.cu k10_mode
+
+
+def window_sums(buckets: torch.Tensor, shape: tuple[int, int] | None = None, part: str = "whole"):
     """K10: (W, 2^c - 1, 4, 18) int32 bucket sums -> (1, 4, 18) int32
-    canonical rows of sum_w 2^(c w) sum_b b S_{w,b}."""
+    canonical rows of sum_w 2^(c w) sum_b b S_{w,b}, at ``shape`` (G pieces
+    a window, Q quads a piece; default ``k10_shape``).  ``part`` times the
+    card's launch, and no entry point sets it: "phase1" launches the window
+    sums without the Horner chain and returns None; "serial" starts the
+    chain only once every window's sum is ready (no overlap)."""
     W, nb = buckets.shape[0], buckets.shape[1] + 1
     _expect(buckets, torch.int32, (W, nb - 1, 4, NLIMBS), "bucket sums")
     if nb < 2 or nb & (nb - 1) or nb > 1 << 24 or W < 1:
         raise ValueError(f"{W} windows of {nb - 1} buckets: want at least one window of 2^c - 1, c in 1..24")
+    c = nb.bit_length() - 1
+    G, Q = shape or k10_shape(W, c)
+    _check_k10_shape(c, (G, Q))
+    if part not in K10_MODES:
+        raise ValueError(f"K10 part {part!r}: want one of {list(K10_MODES)}")
     if not _on_card(buckets):
-        return window_sums_plain(buckets)
+        if part != "whole":
+            raise ValueError("K10's parts time the card's launch; its plain version is whole")
+        return window_sums_plain(buckets, (G, Q))
     out = torch.empty((1, 4, NLIMBS), dtype=torch.int32, device=buckets.device)
-    sums = torch.empty((W, GE_WORDS), dtype=torch.int32, device=buckets.device)
-    counter = torch.zeros((1,), dtype=torch.int32, device=buckets.device)
-    _launch("window_sums", "window_sums", buckets, sums, counter, out, W, nb.bit_length() - 1)
+    scratch = torch.empty(((2 * G + 1) * W, GE_WORDS), dtype=torch.int32, device=buckets.device)
+    sync = torch.zeros((1 + 2 * W,), dtype=torch.int32, device=buckets.device)
+    _launch("window_sums", "window_sums", buckets, scratch, scratch[2 * G * W :], sync, out, W, c, G, Q,
+            K10_MODES[part])
+    return None if part == "phase1" else out
+
+
+def k10_rounds(point: torch.Tensor, c: int, n: int) -> torch.Tensor:
+    """K10's Horner steps alone on one quad of threads (k10_rounds_plain's
+    function): 2 n (c + 1) dependent rounds with nothing to wait on, which
+    time the latency floor of K10's chain.  No entry point calls it; on the
+    card it counts as a K10 launch."""
+    _expect(point, torch.int32, (1, 4, NLIMBS), "K10 rounds' point")
+    if not 1 <= c <= 24 or n < 1:
+        raise ValueError(f"K10 rounds at c = {c}, n = {n}: want c in 1..24 and n >= 1")
+    if not _on_card(point):
+        return k10_rounds_plain(point, c, n)
+    out = torch.empty((1, 4, NLIMBS), dtype=torch.int32, device=point.device)
+    _launch("window_sums", "k10_rounds", point, out, c, n)
     return out
 
 

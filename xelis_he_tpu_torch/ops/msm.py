@@ -10,7 +10,11 @@ bound to a torch ``Curve``:
   glue); the bucket sums (K9) and the windows' weighted sums with Horner's
   c doublings between them (K10).  On CPU tensors the kernels' plain
   versions run: K9's is the JAX package's segmented Hillis-Steele scan
-  (``_combine_seg``, ``_inclusive_scan``) on the torch Curve.
+  (``_combine_seg``, ``_inclusive_scan``) on the torch Curve.  Each phase
+  of ``msm_points`` is a ``metrics`` span: ``msm.digits``, ``msm.points``
+  (the points' limbs), ``msm.bucket_runs``, ``msm.k9``, ``msm.k10`` and
+  ``msm.pull``.  They do not synchronise: the kernels' spans hold the host's
+  plan and launches, and ``msm.pull`` the wait for the card.
 - double-and-add (``msm_daa_lanes``, ``msm_daa``): K7, then K3's tree.
   ``batch_dual_mul`` is plain tensor code, as it is in the JAX package.
 
@@ -23,6 +27,7 @@ from __future__ import annotations
 import numpy as _np
 import torch
 
+from ..metrics import span
 from ..pyref.ristretto import RistrettoPoint
 from .curve import Curve, point_to_rows, rows_to_point
 
@@ -149,8 +154,10 @@ class MsmEngine:
         """K9 over every window: the (W, 2^c - 1, 4, 18) bucket sums."""
         from . import kernels as K
 
-        order, offsets = bucket_runs(digits, self.window, self.curve.fe.device)
-        return K.bucket_sums(point_to_rows(points).to(torch.int32).contiguous(), order, offsets)
+        with span("msm.bucket_runs"):
+            order, offsets = bucket_runs(digits, self.window, self.curve.fe.device)
+        with span("msm.k9"):
+            return K.bucket_sums(point_to_rows(points).to(torch.int32).contiguous(), order, offsets)
 
     def _window_sum(self, points, d):
         """sum_b b S_b of one window's digits ``d`` (N,) over ``points``: the
@@ -164,7 +171,9 @@ class MsmEngine:
         K10 (each window's sum_b b S_b and Horner from the top window)."""
         from . import kernels as K
 
-        total = K.window_sums(self._buckets(points, digits))
+        buckets = self._buckets(points, digits)
+        with span("msm.k10"):
+            total = K.window_sums(buckets)
         return tuple(c[0] for c in rows_to_point(total))
 
     def msm_points(self, scalars: list[int], points: list[RistrettoPoint]) -> RistrettoPoint:
@@ -172,10 +181,13 @@ class MsmEngine:
             from ..pyref.ristretto import IDENTITY
 
             return IDENTITY
-        digits = decompose_digits(scalars, self.window)
-        batch = self.curve.from_points(points)
+        with span("msm.digits"):
+            digits = decompose_digits(scalars, self.window)
+        with span("msm.points"):
+            batch = self.curve.from_points(points)
         result = self.msm(batch, digits)
-        return self.curve.to_points(tuple(c[None] for c in result))[0]
+        with span("msm.pull"):
+            return self.curve.to_points(tuple(c[None] for c in result))[0]
 
     # -- bit-serial double-and-add: K7 and K3 --------------------------------
 

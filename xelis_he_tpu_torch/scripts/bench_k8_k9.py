@@ -1,4 +1,4 @@
-"""K8's block shape and K9's block size on the card.
+"""K8's block shape, K9's block size and K10's shape on the card.
 
     python -m xelis_he_tpu_torch.scripts.bench_k8_k9   (from the repo root)
 
@@ -19,7 +19,12 @@ card's name and power limit:
   K8 on a decode group (16 x 8,193 lanes), a table launch (256 x 4,096) and
   grids of 2^15 to 2^20 lanes (ns a lane: how many lanes fill the card);
   K9 on the window-13 digits of 65,536 random scalars and on 4,096 lanes
-  that all but two share one scalar: its passes, ms a call and device ms.
+  that all but two share one scalar: its passes, ms a call and device ms;
+  K10 on K9's buckets of those 65,536 lanes at each of ``K10_SHAPES``
+  (pieces a window and quads a piece are launch parameters: no build),
+  held to the default shape's result by encoding (another shape adds in
+  another order), with chip_smoke.py's ``k10_figures``: device ms whole,
+  of phase 1 alone and of phase 1 then the Horner chain.
 """
 
 from __future__ import annotations
@@ -50,6 +55,8 @@ REPS = 5  # timed calls of each shape (median)
 K8_SHAPES = ((128, 255), (128, 168), (96, 224), (64, 200), (32, 200), (32, 184))
 K9_KS = (3, 4, 5, 6)
 FILL_ROWS = (8, 16, 32, 64, 128, 256)  # grids of FILL_ROWS x 4,096 lanes: 2^15 to 2^20
+# K10's (pieces a window, quads a piece) at c = 13, 20 windows: k10_shape's (16, 64) among them
+K10_SHAPES = ((8, 32), (16, 16), (16, 32), (16, 64), (32, 32), (32, 64), (64, 64))
 OUT = pathlib.Path("chiprun_out") / "k8_k9_variants.json"
 
 
@@ -89,6 +96,21 @@ def build_variants(specs, ptxas_info) -> dict:
     return built
 
 
+def k10_lines(CS, card, buckets) -> list[dict]:
+    """K10 at each of ``K10_SHAPES`` on ``buckets``, its encoding held to the
+    default shape's."""
+    clock_hz = float(CS.nvidia_smi("clocks.max.sm").split()[0]) * 1e6
+    want = K.compress(K.window_sums(buckets))
+    lines = []
+    for shape in K10_SHAPES:
+        if not torch.equal(K.compress(K.window_sums(buckets, shape)), want):
+            raise AssertionError(f"K10 at {shape} differs from the default shape by encoding")
+        lines.append({"variant": f"K10 G={shape[0]},Q={shape[1]}", **CS.k10_figures(buckets, clock_hz, shape),
+                      "card": card})
+        print(json.dumps(lines[-1]), flush=True)
+    return lines
+
+
 def main() -> int:
     import chip_smoke as CS  # its timing and ptxas helpers; run from the repo root
 
@@ -117,6 +139,8 @@ def main() -> int:
         order, offsets = bucket_runs(decompose_digits(scal, 13), 13, device)
         k9_cases[what] = (pick(n), order, offsets)
 
+    k10_in = K.bucket_sums(*k9_cases["65536 lanes"])
+    lines = k10_lines(CS, card, k10_in)
     specs = {f"K8_THREADS={t},K8_REGISTERS={r}": ("add_compress", "add_compress.cu",
                                                   {"K8_THREADS": t, "K8_REGISTERS": r}) for t, r in K8_SHAPES}
     specs.update({f"K9_K={k}": ("bucket_sums", "ed25519.cuh", {"K9_K": k}) for k in K9_KS})
@@ -124,7 +148,6 @@ def main() -> int:
     want8 = {what: K.add_compress(*c)[0] for what, c in k8_cases.items()}
     want9 = {what: K.bucket_sums(*c) for what, c in k9_cases.items()}
     built = build_variants(specs, CS.ptxas_info)
-    lines = []
     for tag, (fn, figures) in built.items():
         lib = specs[tag][0]
         saved_fn, saved_k = _build._fns[lib], K.K9_K
