@@ -8,8 +8,9 @@ Phases, each of which fails the run loudly:
 
 1. card: the CUDA device's name, power limit and maximum SM clock;
 2. build: nvcc compiles the fourteen kernels of xelis_he_tpu_torch/csrc
-   (K1-K14), one process each, side by side; the SASS loop of K11's two
-   forms shows which instruction a wide multiply-add is (cuobjdump);
+   (K1-K14), one process each, side by side; the SASS loop of K11's three
+   forms shows which instruction a wide and a high multiply-add are
+   (cuobjdump);
 3. kernels vs plain: each kernel's wrapper on the card against its plain
    PyTorch version on the card, on edge cases (bit-exact: every output is
    canonical), against host references (pyref), and K6 against K2 (by
@@ -36,7 +37,8 @@ Phases, each of which fails the run loudly:
 7. generic MSM: ``accel.msm`` on one transaction's range-proof lanes (the K5
    branch) and on a lane count that fills packed tiles (the K2 branch),
    against pyref; ``verify(tx, state, msm=accel.msm)`` over 64 transactions;
-   ``MsmEngine.msm_daa`` at 512 lanes (K7);
+   ``MsmEngine.msm_daa`` at 512 lanes (K7); the host's figure beside it is
+   ``verify`` with pyref's ``multiscalar_mul``;
 8. signatures and conversions: ``verify_signatures`` on the block's
    signatures with one made bad; ``decompress_many_lazy``, ``decompress_many``
    and ``compress_many`` round trips on the block's encodings;
@@ -83,8 +85,9 @@ Phases, each of which fails the run loudly:
     ``msm.*`` spans;
 11d. roofline probes: the probe scripts (python -m xelis_he_tpu_torch.scripts.
     bench_roofline, bench_fe13, bench_qtile) at 16,384, 131,072 and
-    1,048,576 lanes and launches of ~2 ms: K11's u32 and wide multiply-add
-    rates, K12 (_mul_t at three block widths), K13 (_mul13 and its two
+    1,048,576 lanes and launches of ~2 ms: K11's u32, wide and high-word
+    (mad.hi) multiply-add rates, K12 (_mul_t in its column-sum form,
+    at three block widths), K13 (_mul13 and its two
     carry variants) and K14 (the port's fe_mul/fe_sq on both tiers), every
     launch held to its plain version bit for bit (every lane at 4 reps, a
     sample of lanes at the timed reps, K14's sample also by value against
@@ -111,13 +114,16 @@ card's name and power limit as nvidia-smi prints them, and {"ok": true,
 "device": {...}}.  Long logs go to chiprun_out/.  Without a CUDA device, or
 outside a checkout of the repository, it exits non-zero and prints no result.
 
-With ``--kernels-from DIR`` it only times K1-K10 of the port checked out at
+With ``--kernels-from DIR`` it only times K1-K12 of the port checked out at
 DIR (for instance a ``git archive`` of an earlier commit) at the main path's
 largest shapes, K7 also at a count that fills the card, K8 on 16 decode
 rounds of 8,193 lanes (one launch or sixteen, as the tree's K8 takes them),
 K9 on the digits of 65,536 scalars (all its launches) and K10 on K9's
 buckets, on inputs made
-from ``--seed``, with a digest of each output, then the entry points that
+from ``--seed``, with a digest of each output, K12 at 1,048,576 lanes x 8
+reps (block 256) and K11's forms (u32, wide and, where the tree has it,
+high word) on 131,072 x 18 elements (device time and CUDA events, a digest
+of each, K12's ptxas figures and SASS counts by pipe), then the entry points that
 call K8 and K9 on the host's clock (the l1 = 22 table, a decode that hits
 in its first round, a full walk of [0, 2^44), ``msm_points`` at 65,536
 points), the ptxas figures of K1, K4, K6-K10 and K1's and K4's SASS mix of
@@ -192,9 +198,9 @@ PROBE_ROWS = {"probe_imad": "imad", "probe_mul15": "mul15_b256", "probe_mul13": 
 # the probe phase's lane counts (the scripts sweep 1,024 to 1,048,576) and launch time
 PROBE_LANES = (16_384, 131_072, 1_048_576)
 PROBE_TARGET_MS = 2.0
-# the SASS whose loop mix the build phase prints: K11's two forms (IMAD or
-# IMAD.WIDE), and one instantiation each of K12, K13 and K14
-PROBE_SASS = {"probe_imad": ("probe_imad_kernel", "probe_imad_wide_kernel"),
+# the SASS whose loop mix the build phase prints: K11's three forms (IMAD,
+# IMAD.WIDE or IMAD.HI), and one instantiation each of K12, K13 and K14
+PROBE_SASS = {"probe_imad": ("probe_imad_kernel", "probe_imad_wide_kernel", "probe_imad_hi_kernel"),
               "probe_mul15": ("probe_mul15_kernelILi256E",), "probe_mul13": ("probe_mul13_kernelILi0E",),
               "probe_fe": ("probe_fe_kernelIN3xhe2feELb0E", "probe_fe_kernelIN3xhe4fe15ELb0E")}
 # the library (csrc/<name>.cu, ops/_build.py) each kernel is built into
@@ -933,7 +939,7 @@ def generic_msm(rng: random.Random, txs, ledger, accel):
     t0 = time.perf_counter()
     state = ledger.clone()
     for tx in txs[:64]:
-        verify(tx, state)
+        verify(tx, state, msm=multiscalar_mul)
     host_ms = (time.perf_counter() - t0) * 1e3 / 64
     log(f"  64 single-transaction verifies: {card_ms:.2f} ms each with accel.msm "
         f"({len(sizes) // 64} MSMs a transaction, of {sorted(set(sizes))} points, one K5 launch and one "
@@ -1918,7 +1924,11 @@ def resident_blocks(regs: int, threads: int, smem: int = 0) -> int:
     return min(65536 // (warp_regs * warps), 2048 // threads, 32, 233472 // (smem + 1024))
 
 
-SASS_CLASSES = ("IMAD.WIDE", "IMAD", "IADD3", "SHF", "LOP3")
+SASS_CLASSES = ("IMAD.WIDE", "IMAD.HI", "IMAD", "IADD3", "SHF", "LOP3", "LEA")
+# integer opcodes by the pipe that issues them (16 lanes a clock an SM
+# sub-partition each): the FMA pipe runs IMAD in every form (WIDE, HI, SHL,
+# MOV, IADD), the ALU pipe the adds, logic, shifts, LEA and compares
+SASS_ALU = ("IADD3", "LOP3", "SHF", "LEA", "ISETP", "SEL", "PRMT", "IMNMX", "IABS", "FLO", "POPC", "PLOP3")
 
 
 def sass_function(lib: pathlib.Path, kernel: str) -> str:
@@ -1947,6 +1957,18 @@ def sass_class_mix(ops) -> dict:
     return mix
 
 
+def sass_pipe_mix(ops) -> dict:
+    """Instructions by pipe (``fma``, ``alu``, ``other``: memory, control,
+    moves) and by opcode."""
+    import collections
+
+    by_op = collections.Counter(ops)
+    fma = sum(n for op, n in by_op.items() if op.startswith("IMAD"))
+    alu = sum(n for op, n in by_op.items() if op.split(".")[0] in SASS_ALU)
+    return {"fma": fma, "alu": alu, "other": len(ops) - fma - alu, "total": len(ops),
+            "by_op": dict(by_op.most_common())}
+
+
 def sass_function_mix(lib: pathlib.Path, kernel: str) -> dict:
     """Instruction count by class of the whole of ``kernel``'s SASS (its
     callees included): K14's fe15 loop only calls fe_mul."""
@@ -1956,8 +1978,9 @@ def sass_function_mix(lib: pathlib.Path, kernel: str) -> dict:
                             for ln in body.splitlines()) if m])
 
 
-def sass_loop_mix(lib: pathlib.Path, kernel: str) -> dict:
-    """Instruction count by class of one fe_sq of kernel ``kernel`` in the
+def sass_loop_mix(lib: pathlib.Path, kernel: str, classify=sass_class_mix) -> dict:
+    """Instruction count by class (``classify``: ``sass_class_mix`` or
+    ``sass_pipe_mix``) of one fe_sq of kernel ``kernel`` in the
     built library ``lib``: fe_sqn's loops (``#pragma unroll 1``) each hold one
     squaring and the loop's own test, so the body that occurs most often
     among the innermost loops of the kernel's SASS (cuobjdump) is one fe_sq.
@@ -1991,7 +2014,7 @@ def sass_loop_mix(lib: pathlib.Path, kernel: str) -> dict:
         raise RuntimeError(f"no loop in the SASS of {kernel}")
     bodies = [[ins.split()[0] for addr, ins in insns if a <= addr <= b] for a, b in inner]
     length = collections.Counter(len(x) for x in bodies).most_common(1)[0][0]
-    mix = sass_class_mix(next(x for x in bodies if len(x) == length))
+    mix = classify(next(x for x in bodies if len(x) == length))
     mix["loops_alike"] = sum(len(x) == length for x in bodies)
     return mix
 
@@ -2103,6 +2126,7 @@ def kernels_from(root: pathlib.Path, seed: int) -> dict:
             res = K.compress(res)
         out[f"{name} at {shape}"] = {"ms": device_ms(fn, KERNELS[name][2]) * per_call, "launches": per_call,
                                      "call_ms": call_ms(fn, 10), "digest": digest(res)}
+    out.update(probe_cases(root, device))
     out.update(end_to_end(rng, encs, device))
     torch.cuda.synchronize()
     for name in BUILD_FIGURES:
@@ -2112,6 +2136,54 @@ def kernels_from(root: pathlib.Path, seed: int) -> dict:
         if name in ("decompress", "compress"):
             info["fe_sq_sass"] = sass_loop_mix(lib_dir / f"lib{lib}.so", fn_name)
         out[f"{name} build"] = info
+    return out
+
+
+def probe_cases(root: pathlib.Path, device) -> dict:
+    """K12 at 1,048,576 lanes x 8 reps (block 256) and K11's forms (u32,
+    wide and, where the tree has it, the high word's) on 131,072 x 18
+    elements, in the tree ``kernels_from`` imported: device time (the
+    profiler's records over 5 calls) and CUDA events (median of 5 single
+    calls), with a digest of the output that any two commits share (K12's
+    limbs are _mul_t's), and K12's ptxas figures and SASS counts by pipe of
+    its loop (one rep: four _mul_t) as that tree builds it."""
+    import hashlib
+    import inspect
+
+    import numpy as np
+    import torch
+
+    from xelis_he_tpu_torch.ops import _build
+    from xelis_he_tpu_torch.ops import probes as PR
+
+    def operands(lanes):
+        rng = np.random.default_rng(1)  # the probe scripts' inputs: x below 2^15, y in [1, 2^15)
+        x = rng.integers(0, 1 << 15, (18, lanes), dtype=np.uint32)
+        y = rng.integers(1, 1 << 15, (18, lanes), dtype=np.uint32)
+        return tuple(torch.from_numpy(a.view(np.int32)).to(device) for a in (x, y))
+
+    x12, y12 = operands(1_048_576)
+    x11, y11 = operands(131_072)
+    cases = [("probe_mul15", "probe_mul15_kernel", "1048576 lanes x 8 reps, block 256",
+              lambda: PR.probe_mul15(x12, y12, 8, 256))]
+    forms = [("u32", {}, 40), ("wide", {"wide": True}, 16)]
+    if "hi" in inspect.signature(PR.probe_imad).parameters:
+        forms.append(("hi", {"hi": True}, 40))
+    for form, kw, reps in forms:
+        kernel = {"u32": "probe_imad_kernel"}.get(form, f"probe_imad_{form}_kernel")
+        cases.append(("probe_imad", kernel, f"{form}, 131072 x 18 elements x {reps} reps",
+                      lambda kw=kw, reps=reps: PR.probe_imad(x11, y11, reps, **kw)))
+    out = {}
+    for name, kernel, shape, fn in cases:
+        res = fn()
+        out[f"{name} at {shape}"] = {
+            "ms": device_ms(fn, kernel), "event_ms": time_ms(fn),
+            "digest": hashlib.sha256(res.cpu().numpy().tobytes()).hexdigest()[:16]}
+    fn_name = "probe_mul15_kernelILi256E"
+    info = ptxas_info(_build.ptxas_log["probe_mul15"], fn_name) if "probe_mul15" in _build.ptxas_log else {}
+    info["loop_sass"] = sass_loop_mix(_build.build_dir() / "libprobe_mul15.so", fn_name, sass_pipe_mix)
+    out["probe_mul15 build"] = info
+    log(f"  probes: {json.dumps(out)}")
     return out
 
 
@@ -2160,7 +2232,7 @@ def main() -> int:
     ap.add_argument("--iters", type=int, default=3, help="timed verifies of the block")
     ap.add_argument("--seed", type=int, default=1, help="seed of the kernel inputs")
     ap.add_argument("--kernels-from", type=pathlib.Path, default=None, metavar="DIR",
-                    help="only time K1-K10 of the port checked out at DIR")
+                    help="only time K1-K12 of the port checked out at DIR")
     args = ap.parse_args()
 
     import torch

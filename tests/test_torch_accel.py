@@ -241,3 +241,60 @@ def test_methods_that_still_wait_name_their_roadmap_item(accel):
     sigma, range_ = ([3, L - 3], [P, P]), ([1], [P])
     assert accel.fused_block_check(sigma, range_, []) == (True, False, True)
     assert accel.fused_block_finish(accel.fused_block_begin(sigma, []), range_) == (True, False, True)
+
+
+def _no_card(monkeypatch):
+    """No CUDA device, and no process-wide accelerator made before."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr("xelis_he_tpu_torch.ops.accel._default", None)
+
+
+def test_entry_points_need_a_card_without_an_accelerator(monkeypatch):
+    """Given no accelerator, ``verify_batch``, ``verify``, ``verify_share``
+    and ``verify_batch_distributed`` take ``default_accelerator()`` and raise
+    as ``Accelerator()`` does, before touching the block: no path goes to
+    the host on its own."""
+    from xelis_he_tpu_torch import verify_batch
+    from xelis_he_tpu_torch.parallel.dcn import verify_batch_distributed, verify_share
+
+    _no_card(monkeypatch)
+    with pytest.raises(RuntimeError, match="CUDA") as want:
+        Accelerator()
+    for call in (lambda: verify_batch([], Ledger()), lambda: verify_batch([object()], Ledger(), transactional=True),
+                 lambda: verify(object(), Ledger()),
+                 lambda: verify_share([object()], Ledger(), process_index=0, num_processes=1),
+                 lambda: verify_batch_distributed([object()], Ledger(), process_index=0, num_processes=1)):
+        with pytest.raises(RuntimeError, match="CUDA") as got:
+            call()
+        assert str(got.value) == str(want.value)
+    with pytest.raises(ValueError, match="accel='cpu'"):
+        verify_batch([], Ledger(), accel="cpu")
+
+
+def test_host_path_only_when_asked(monkeypatch):
+    """``accel="host"`` (and pyref's ``multiscalar_mul`` for ``verify``)
+    verify one transaction on the reference's host path: accepted, the
+    receiver credited, a tampered fee rejected, and no accelerator made."""
+    from xelis_he_tpu_torch import verify_batch
+    from xelis_he_tpu_torch.parallel.dcn import verify_share
+
+    _no_card(monkeypatch)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the host path made an accelerator")
+
+    monkeypatch.setattr(Accelerator, "__init__", refuse)
+    tx, ledger, pk_r = _transfer()
+    for check in (lambda state: verify_batch([tx], state, accel="host"),
+                  lambda state: verify_batch([tx], state, accel="host", transactional=True),
+                  lambda state: verify(tx, state, msm=multiscalar_mul),
+                  lambda state: verify_share([tx], state, accel="host", process_index=0, num_processes=1)):
+        state = ledger.clone()
+        assert check(state) is None
+        assert state.get_bal_decrypted(pk_r, NATIVE_ASSET) == mul_base(10)
+    bad = copy.deepcopy(tx)
+    bad.fee = 2
+    with pytest.raises(ProofVerificationError):
+        verify_batch([bad], ledger.clone(), accel="host")
+    assert isinstance(verify_share([bad], ledger.clone(), accel="host", process_index=0, num_processes=1),
+                      ProofVerificationError)

@@ -146,8 +146,24 @@ def test_device_built_table_equals_host_and_jax_tables(accel):
     K.reset_launches()
     dev = ECDLPTables.build(12, accel=accel)
     assert K.launches["add_compress"] == 0
-    _same_table(dev, ECDLPTables.build(12))
+    _same_table(dev, ECDLPTables.build(12, accel="host"))
     _same_table(dev, jax_ecdlp.ECDLPTables.build(12))
+
+
+def test_table_build_needs_a_card_without_an_accelerator(monkeypatch):
+    """Given no accelerator, a table of ``chunk`` steps or more is built on
+    ``default_accelerator()``, which raises as ``Accelerator()`` does; a
+    smaller one stays on the host, as the JAX package builds it; a string
+    other than ``"host"`` is refused."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr("xelis_he_tpu_torch.ops.accel._default", None)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ECDLPTables.build(12)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ECDLPTables.build(8, chunk=64)
+    _same_table(ECDLPTables.build(5), jax_ecdlp.ECDLPTables.build(5))
+    with pytest.raises(ValueError, match="accel='cuda'"):
+        ECDLPTables.build(12, accel="cuda")
 
 
 def test_device_build_chains_chunks(accel, monkeypatch):

@@ -20,6 +20,7 @@ from xelis_he_tpu_torch.ops import probes as PR
 LANES = 64
 REPS = 3
 P = 2**255 - 19
+M32 = (1 << 32) - 1
 
 
 def _inputs(rows, bits, seed):
@@ -122,6 +123,40 @@ def test_mul15_plain_matches_mul_t():
     assert np.array_equal(_np(PR.probe_mul15_plain(_t(x), _t(y), REPS)), want)
 
 
+def test_mul15_plain_refuses_limbs_of_16_bits():
+    """K12's column-sum form needs every limb below 2^16 (the relaxed limbs
+    are at most 2^15 + 2^11): the plain version asserts it of both operands."""
+    x, y = _inputs(18, 15, 3)
+    x[0, 5] = 1 << 16
+    with pytest.raises(AssertionError, match="_mul_t limb of a leaves 16 bits"):
+        PR.probe_mul15_plain(_t(x), _t(y), 1)
+    x[0, 5], y[17, 0] = 0, 1 << 16
+    with pytest.raises(AssertionError, match="_mul_t limb of b leaves 16 bits"):
+        PR.probe_mul15_plain(_t(x), _t(y), 1)
+
+
+def _imad_hi_numpy(x, y, reps):
+    """The high form's chains in numpy uint64: x = ((x y) >> 32) + x mod 2^32."""
+    c = [(x.astype(np.uint64) + np.uint64(k)) & np.uint64(M32) for k in range(4)]
+    y = y.astype(np.uint64)
+    for _ in range(reps * 81):
+        c = [(((v * y) >> np.uint64(32)) + v) & np.uint64(M32) for v in c]
+    return (c[0] ^ c[1] ^ c[2] ^ c[3]).astype(np.uint32)
+
+
+def test_imad_hi_plain_matches_numpy():
+    """K11's high form at full width: any u32 operands, y = 2^32 - 1 among
+    them, against numpy's (a b) >> 32 in uint64."""
+    rng = np.random.default_rng(11)
+    x = rng.integers(0, 1 << 32, (2, LANES), dtype=np.uint64).astype(np.uint32)
+    y = rng.integers(0, 1 << 32, (2, LANES), dtype=np.uint64).astype(np.uint32)
+    y[0, :4] = 0xFFFFFFFF
+    got = _np(PR.probe_imad_plain(_t(x), _t(y), REPS, hi=True))
+    assert np.array_equal(got, _imad_hi_numpy(x, y, REPS))
+    with pytest.raises(ValueError):
+        PR.probe_imad_plain(_t(x), _t(y), REPS, wide=True, hi=True)
+
+
 @pytest.mark.parametrize("mode", PR.MUL13_MODES)
 def test_mul13_plain_matches_fe13_helpers(mode):
     x, y = _inputs(20, 13, 4)
@@ -177,6 +212,8 @@ def test_wrappers_check_shapes_and_devices():
     with pytest.raises(ValueError):
         PR.probe_imad(z18, z18.to(torch.int64), 1)
     with pytest.raises(ValueError):
+        PR.probe_imad(z18, z18, 1, wide=True, hi=True)
+    with pytest.raises(ValueError):
         PR.probe_imad(z18, z20, 1)
     with pytest.raises(ValueError):
         PR.probe_imad(z18[:, ::2], z18[:, ::2], 1)
@@ -219,7 +256,8 @@ def test_muladd_counts():
 # -- the probe scripts (xelis_he_tpu_torch/scripts/) on the CPU ------------------
 
 SCRIPT_METRICS = {
-    "bench_roofline": ["vpu_u32_mul_per_sec", "vpu_u32_mul_per_sec_wide", "field_muls_per_sec_chip",
+    "bench_roofline": ["vpu_u32_mul_per_sec", "vpu_u32_mul_per_sec_wide", "vpu_u32_mulhi_per_sec",
+                       "field_muls_per_sec_chip",
                        "field_muls_per_sec_chip_fe13", "port_fe_mul_per_sec", "port_fe_sq_per_sec",
                        "port_fe15_mul_per_sec", "port_fe15_sq_per_sec", "msm_windowed_pts_per_sec",
                        "msm_quad_pts_per_sec"],
@@ -301,9 +339,10 @@ def shim(tmp_path_factory):
     lib.shim_probe_imad.argtypes = [vp, vp, vp, i, i, i]
     lib.shim_probe_mul15.argtypes = [vp, vp, vp, i, i]
     lib.shim_probe_mul13.argtypes = [vp, vp, vp, i, i, i]
-    lib.shim_probe_mul13.restype = i
     lib.shim_probe_fe.argtypes = [vp, vp, vp, i, i, i, i]
-    for fn in (lib.shim_probe_imad, lib.shim_probe_mul15, lib.shim_probe_fe):
+    for fn in (lib.shim_probe_imad, lib.shim_probe_mul13):
+        fn.restype = i
+    for fn in (lib.shim_probe_mul15, lib.shim_probe_fe):
         fn.restype = None
     return lib
 
@@ -324,10 +363,56 @@ def test_cuh_imad_matches_plain(shim, wide):
     assert np.array_equal(got, _np(PR.probe_imad_plain(_t(x), _t(y), REPS, wide)))
 
 
+def test_cuh_imad_hi_matches_plain_and_numpy(shim):
+    """K11's high form (mad.hi) built for the host: the plain version's and
+    numpy's chains, y = 2^32 - 1 among the operands; a form the kernel lacks
+    is refused."""
+    rng = np.random.default_rng(12)
+    x = rng.integers(0, 1 << 32, (2, LANES), dtype=np.uint64).astype(np.uint32)
+    y = rng.integers(0, 1 << 32, (2, LANES), dtype=np.uint64).astype(np.uint32)
+    y[1, :3] = 0xFFFFFFFF
+    got = _run(shim.shim_probe_imad, x, y, x.shape, x.size, REPS, 2)
+    assert np.array_equal(got, _np(PR.probe_imad_plain(_t(x), _t(y), REPS, hi=True)))
+    assert np.array_equal(got, _imad_hi_numpy(x, y, REPS))
+    out = np.zeros_like(x)
+    assert shim.shim_probe_imad(x.ctypes.data, y.ctypes.data, out.ctypes.data, x.size, 1, 3) == -1
+
+
 def test_cuh_mul15_matches_plain(shim):
     x, y = _inputs(18, 15, 8)
     got = _run(shim.shim_probe_mul15, x, y, x.shape, LANES, REPS)
     assert np.array_equal(got, _np(PR.probe_mul15_plain(_t(x), _t(y), REPS)))
+
+
+EDGE15 = (1 << 15) + (1 << 11)  # _mul_t's largest relaxed limb
+
+
+def _edge_inputs15():
+    """Random limbs, and lanes of 0, 2^15 - 1 and 2^15 + 2^11 (a chain k
+    adds k to x's limbs: still below 2^16)."""
+    x, y = _inputs(18, 15, 13)
+    x[:, 0], y[:, 1] = 0, 0
+    x[:, 2], y[:, 2] = (1 << 15) - 1, (1 << 15) - 1
+    x[:, 3], y[:, 3] = EDGE15, EDGE15
+    x[:, 4], y[:, 4] = EDGE15, (1 << 15) - 1
+    x[::2, 5], y[1::2, 5] = EDGE15, EDGE15
+    return x, y
+
+
+def test_cuh_mul15_matches_plain_and_mul_t_at_edge_limbs(shim):
+    """K12's column-sum _mul_t built for the host, limb for limb (tolerance
+    0): the plain version and the JAX helper _mul_t chained as the probe
+    chains it, on random and edge limbs, after 1 to 8 reps (each rep's
+    inputs the chains' outputs of the rep before)."""
+    x, y = _edge_inputs15()
+    xs = tuple(x + np.uint32(k) for k in range(4))
+    for reps in range(1, 9):
+        xs = tuple(pm._mul_t(v, y, np) for v in xs)
+        want = xs[0] ^ xs[1] ^ xs[2] ^ xs[3]
+        if reps in (1, 2, 5, 8):
+            assert np.array_equal(_np(PR.probe_mul15_plain(_t(x), _t(y), reps)), want)
+        got = _run(shim.shim_probe_mul15, x, y, x.shape, LANES, reps)
+        assert np.array_equal(got, want), f"{reps} reps"
 
 
 @pytest.mark.parametrize("mode", PR.MUL13_MODES)

@@ -9,8 +9,13 @@ using namespace xhe;
 
 extern "C" {
 
-void shim_probe_imad(const uint32_t *x, const uint32_t *y, uint32_t *out, int n, int reps, int wide) {
-  for (int i = 0; i < n; ++i) out[i] = wide ? probe_imad_wide(x[i], y[i], reps) : probe_imad(x[i], y[i], reps);
+// form: 0 the u32 chain, 1 the 64-bit one, 2 the high word's (mad.hi)
+int shim_probe_imad(const uint32_t *x, const uint32_t *y, uint32_t *out, int n, int reps, int form) {
+  if (form < 0 || form > 2) return -1;
+  for (int i = 0; i < n; ++i)
+    out[i] = form == 1 ? probe_imad_wide(x[i], y[i], reps)
+                       : form == 2 ? probe_imad_hi(x[i], y[i], reps) : probe_imad(x[i], y[i], reps);
+  return 0;
 }
 
 void shim_probe_mul15(const uint32_t *x, const uint32_t *y, uint32_t *out, int T, int reps) {

@@ -16,6 +16,10 @@
 // CUDA field's column sums (ed25519.cuh fe_mul, fe15's fe_mul).  Its rate
 // against the u32 form's says what a wide product costs in issue slots,
 // which the kernels' bounds (ops/kernels.py MULADDS_PER_FIELD_*) charge.
+//
+// The high form runs each chain as x = hi32(x * y) + x, one mad.hi.u32 a
+// step: what a product's high part costs on the FMA pipe, in u32 slots
+// (K12's mul_t takes it on the ALU instead, with LEA.HI).
 
 #include <cuda_runtime.h>
 
@@ -39,16 +43,27 @@ __global__ void __launch_bounds__(BLOCK)
   if (i < n) out[i] = probe_imad_wide(x[i], y[i], reps);
 }
 
-// n elements; wide 0 for the u32 chain, 1 for the 64-bit one
-extern "C" int xhe_probe_imad(const void *x, const void *y, void *out, int n, int reps, int wide, void *stream) {
+__global__ void __launch_bounds__(BLOCK)
+    probe_imad_hi_kernel(const uint32_t *__restrict__ x, const uint32_t *__restrict__ y,
+                         uint32_t *__restrict__ out, int n, int reps) {
+  const int i = blockIdx.x * BLOCK + threadIdx.x;
+  if (i < n) out[i] = probe_imad_hi(x[i], y[i], reps);
+}
+
+// n elements; form 0 for the u32 chain, 1 for the 64-bit one, 2 for the
+// high word's
+extern "C" int xhe_probe_imad(const void *x, const void *y, void *out, int n, int reps, int form, void *stream) {
+  if (form < 0 || form > 2) return (int)cudaErrorInvalidValue;
   if (n > 0) {
     const dim3 grid((n + BLOCK - 1) / BLOCK);
-    if (wide)
-      probe_imad_wide_kernel<<<grid, BLOCK, 0, (cudaStream_t)stream>>>((const uint32_t *)x, (const uint32_t *)y,
-                                                                       (uint32_t *)out, n, reps);
+    const uint32_t *xs = (const uint32_t *)x, *ys = (const uint32_t *)y;
+    cudaStream_t s = (cudaStream_t)stream;
+    if (form == 1)
+      probe_imad_wide_kernel<<<grid, BLOCK, 0, s>>>(xs, ys, (uint32_t *)out, n, reps);
+    else if (form == 2)
+      probe_imad_hi_kernel<<<grid, BLOCK, 0, s>>>(xs, ys, (uint32_t *)out, n, reps);
     else
-      probe_imad_kernel<<<grid, BLOCK, 0, (cudaStream_t)stream>>>((const uint32_t *)x, (const uint32_t *)y,
-                                                                  (uint32_t *)out, n, reps);
+      probe_imad_kernel<<<grid, BLOCK, 0, s>>>(xs, ys, (uint32_t *)out, n, reps);
   }
   return (int)cudaGetLastError();
 }

@@ -9,10 +9,18 @@
 // Bound: operations, 344 u32 multiplies a _mul_t (324 products, 17 times
 // 19 and one times 361 in the fold, one times 19 in each carry) against 144
 // bytes a lane.  One thread a lane (a column of the (18, T) arrays, read
-// and written coalesced), its 4 chains and the operand in registers.  Beside
-// its products _mul_t splits every product at bit 15 (a mask and a shift)
-// and adds both halves: this is the instruction count the TPU's probe found
-// to hold it to a quarter of its multiply rate.
+// and written coalesced), its 4 chains and the operand in registers.
+//
+// The JAX kernels split every product at bit 15 (a mask and a shift) and add
+// both halves, because the TPU's u32 lanes needed every column below 2^32.
+// On the H100 that is about three ALU operations beside each multiply, and
+// the ALU pipe issues no faster than the multiply's FMA pipe: that body,
+// carried over instruction for instruction, ran at about a third of the
+// bound.  The column-sum form (probes.cuh mul_t) adds whole products and
+// their high parts apart and splits once per column: a product is one
+// multiply, a shift-and-add (LEA.HI) and half a three-way add.  (Taking some
+// rows' high parts from mad.hi.u32 on the FMA pipe instead was measured and
+// lost: a mad.hi costs 2.5 u32 issue slots, PERF.md section 6.)
 //
 // The block width is a launch argument (128, 256 or 512 threads), each width
 // its own instantiation with __launch_bounds__ of that width: the H100's
@@ -24,8 +32,11 @@
 
 using namespace xhe;
 
+// one block an SM at least: ptxas may take 255 registers a thread at 128 and
+// 256 threads (one block of 256 an SM ran ~5% faster than two at 128
+// registers)
 template <int B>
-__global__ void __launch_bounds__(B)
+__global__ void __launch_bounds__(B, 1)
     probe_mul15_kernel(const uint32_t *__restrict__ x, const uint32_t *__restrict__ y, uint32_t *__restrict__ out,
                        int T, int reps) {
   const int t = blockIdx.x * B + threadIdx.x;

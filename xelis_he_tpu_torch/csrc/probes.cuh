@@ -9,9 +9,11 @@
 //                        u32 multiply-add of bench_roofline.py's make_raw);
 //                        a second form runs the chain as a 32x32 -> 64-bit
 //                        multiply-add, acc = lo(acc) * y + acc, the form of
-//                        the CUDA field's column sums
+//                        the CUDA field's column sums; a third as the high
+//                        word's multiply-add, x = hi32(x * y) + x
+//                        (mad.hi.u32)
 //   K12 probe_mul15      the JAX kernels' 18 x 15-bit _mul_t (pallas_msm.py
-//                        _mul_t, _carry_t), limb for limb
+//                        _mul_t, _carry_t), limb for limb, as column sums
 //   K13 probe_mul13      the 20 x 13-bit _mul13 (3-pass carry), the 2-pass
 //                        form of bench_fe13.py, and that form with the
 //                        consumer's _carry13, limb for limb
@@ -76,6 +78,34 @@ static XHE_HD uint32_t probe_imad_wide(uint32_t x, uint32_t y, int reps) {
   return out;
 }
 
+// hi32(a * b) + c: one mad.hi.u32 (IMAD.HI.U32 on the card)
+static XHE_HD uint32_t mad_hi(uint32_t a, uint32_t b, uint32_t c) {
+#ifdef __CUDA_ARCH__
+  uint32_t d;
+  asm("mad.hi.u32 %0, %1, %2, %3;" : "=r"(d) : "r"(a), "r"(b), "r"(c));
+  return d;
+#else
+  return (uint32_t)(((uint64_t)a * b) >> 32) + c;
+#endif
+}
+
+// each step x = hi32(x * y) + x, one mad.hi.u32: its rate against the u32
+// form's says what a product's high part costs in issue slots
+static XHE_HD uint32_t probe_imad_hi(uint32_t x, uint32_t y, int reps) {
+  uint32_t c[PROBE_CHAINS];
+#pragma unroll
+  for (int k = 0; k < PROBE_CHAINS; ++k) c[k] = x + (uint32_t)k;
+#pragma unroll 1
+  for (int r = 0; r < reps; ++r) {
+#pragma unroll
+    for (int s = 0; s < PROBE_STEPS; ++s) {
+#pragma unroll
+      for (int k = 0; k < PROBE_CHAINS; ++k) c[k] = mad_hi(c[k], y, c[k]);
+    }
+  }
+  return c[0] ^ c[1] ^ c[2] ^ c[3];
+}
+
 // -- K12: _mul_t ------------------------------------------------------------------
 
 // _carry_t: each limb keeps its low 15 bits and takes its lower neighbour's
@@ -92,22 +122,36 @@ static XHE_HD void carry_t(uint32_t t[P15_LIMBS]) {
   t[1] += hi[P15_LIMBS - 1] * 19u;
 }
 
-// h = a * b as _mul_t: each product split at bit 15 into 36 columns, columns
-// 18-34 folded into 1-17 times 19 and column 35 into 1 times 361, then two
-// carries.  h may alias a.
+// h = a * b as _mul_t: its 36 columns bit for bit, then its fold (columns
+// 18-34 into 1-17 times 19, column 35 into 1 times 361) and two carries.  h
+// may alias a.
+//
+// The JAX kernels split every product p = a_i b_j at bit 15 and add p &
+// 0x7fff to its column and p >> 15 to the next: on the card a mask, a shift
+// and an add (ALU pipe) beside each multiply.  Here column c sums its
+// products whole, S_c = sum a_i b_j mod 2^32, and their high parts apart,
+// H_c = sum p >> 15 (LEA.HI adds one in one instruction); then col_c = S_c -
+// (H_c << 15) + H_(c-1), which holds mod 2^32 and so exactly (every column is
+// below 2^22).  Needs every limb of a and b below 2^16 (_mul_t's relaxed
+// limbs are at most 2^15 + 2^11): then no product wraps.
 static XHE_HD void mul_t(uint32_t h[P15_LIMBS], const uint32_t a[P15_LIMBS], const uint32_t b[P15_LIMBS]) {
   uint32_t acc[2 * P15_LIMBS];
+  uint32_t hprev = 0;
 #pragma unroll
-  for (int k = 0; k < 2 * P15_LIMBS; ++k) acc[k] = 0;
-#pragma unroll
-  for (int j = 0; j < P15_LIMBS; ++j) {
+  for (int c = 0; c < 2 * P15_LIMBS - 1; ++c) {
+    uint32_t s = 0, hs = 0;
 #pragma unroll
     for (int i = 0; i < P15_LIMBS; ++i) {
+      const int j = c - i;
+      if (j < 0 || j >= P15_LIMBS) continue;
       const uint32_t p = a[i] * b[j];
-      acc[i + j] += p & P15_MASK;
-      acc[i + j + 1] += p >> 15;
+      s += p;
+      hs += p >> 15;
     }
+    acc[c] = s - (hs << 15) + hprev;
+    hprev = hs;
   }
+  acc[2 * P15_LIMBS - 1] = hprev;
 #pragma unroll
   for (int k = 1; k < P15_LIMBS; ++k) acc[k] += acc[k + P15_LIMBS - 1] * 19u;
   acc[1] += acc[2 * P15_LIMBS - 1] * 361u;

@@ -65,12 +65,18 @@ class ECDLPTables:
 
     @staticmethod
     def build(l1: int, accel=None, chunk: int = 4096) -> "ECDLPTables":
-        """Generate the 2^l1 baby steps.  With ``accel`` (an
-        ``ops.accel.Accelerator``) they are made on its device by K8, as
-        the grid of starts r*chunk*G and steps j*G (j < chunk); otherwise
-        on host."""
+        """Generate the 2^l1 baby steps.  At ``chunk`` steps or more they
+        are made on ``accel``'s device by K8, as the grid of starts
+        r*chunk*G and steps j*G (j < chunk): ``accel`` is an
+        ``ops.accel.Accelerator``, or None for ``default_accelerator()``
+        (the card, which raises without one), or ``"host"`` for the
+        reference's host loop.  Fewer steps are made on the host, as the
+        JAX package makes them."""
+        from .ops.accel import HOST, resolve_accel
+
         count = 1 << l1
-        if accel is not None and count >= chunk:
+        accel = resolve_accel(accel) if count >= chunk else HOST
+        if accel != HOST:
             prefixes = _device_prefixes(count, accel, chunk)
         else:
             prefixes = np.empty(count, dtype=np.uint64)

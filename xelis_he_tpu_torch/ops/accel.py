@@ -969,3 +969,18 @@ def default_accelerator() -> Accelerator:
     if _default is None:
         _default = Accelerator()
     return _default
+
+
+HOST = "host"  # an entry point's ``accel`` that asks for the reference's host path
+
+
+def resolve_accel(accel):
+    """An entry point's ``accel`` argument: None is the card
+    (``default_accelerator()``, which raises without one); ``"host"`` (which
+    asks for the reference's host path) and an accelerator are returned as
+    they are.  No path falls back to the host on its own."""
+    if accel is None:
+        return default_accelerator()
+    if isinstance(accel, str) and accel != HOST:
+        raise ValueError(f"accel={accel!r}: give an Accelerator, None for the card or {HOST!r}")
+    return accel

@@ -6,10 +6,12 @@ multiply-add counts; their launch counts are in ``kernels.launches``.
 =====  ================  ======================================================
  K11    probe_imad.cu     scripts/bench_roofline.py lane_call(make_raw): the
                           u32 multiply-add x = x y + 1, 81 steps a rep on 4
-                          chains; and the same chain as a 32 x 32 -> 64-bit
-                          multiply-add (``wide``)
+                          chains; the same chain as a 32 x 32 -> 64-bit
+                          multiply-add (``wide``) and as the high word's
+                          multiply-add x = hi32(x y) + x (``hi``)
  K12    probe_mul15.cu    bench_roofline.py lane_call(make_fm), bench_fe13.py
-                          k15, bench_qtile.py's tiles: _mul_t on 4 chains
+                          k15, bench_qtile.py's tiles: _mul_t on 4 chains,
+                          as column sums
  K13    probe_mul13.cu    bench_roofline.py lane_call13(make_fm13),
                           bench_fe13.py k_full, k_def, k_def2: _mul13 and the
                           2-pass form with and without the consumer's carry
@@ -101,14 +103,28 @@ def _mulmod32(a: torch.Tensor, b_lo: torch.Tensor, b_hi: torch.Tensor) -> torch.
     return (a * b_lo + (((a * b_hi) & 0xFFFF) << 16)) & M32
 
 
-def probe_imad_plain(x: torch.Tensor, y: torch.Tensor, reps: int, wide: bool = False) -> torch.Tensor:
+def _hi32(a: torch.Tensor, b_lo: torch.Tensor, b_hi: torch.Tensor) -> torch.Tensor:
+    """floor(a b / 2^32) for a < 2^32 and b = b_hi 2^16 + b_lo (16-bit
+    halves): each partial product stays below 2^48."""
+    return (a * b_hi + ((a * b_lo) >> 16)) >> 16
+
+
+def probe_imad_plain(x: torch.Tensor, y: torch.Tensor, reps: int, wide: bool = False,
+                     hi: bool = False) -> torch.Tensor:
     """K11's function.  u32: each chain takes 81 reps steps of c = c y + 1
     mod 2^32, computed a rep at a time as the 81 steps' composed map
     c = A c + B (A = y^81, B = 1 + y + ... + y^80, mod 2^32).  wide: each
     step acc = lo(acc) y + acc mod 2^64, i.e. lo = lo (y + 1) mod 2^32 and
     hi = hi + floor(lo (y + 1) / 2^32) mod 2^32; out is the XOR over the
-    chains of lo ^ hi."""
+    chains of lo ^ hi.  hi: each step c = floor(c y / 2^32) + c mod 2^32."""
     c, yv = _chains(x), _u32(y)
+    if wide and hi:
+        raise ValueError("probe_imad: one form, wide or hi")
+    if hi:
+        y_lo, y_hi = yv & 0xFFFF, yv >> 16
+        for _ in range(reps * IMAD_STEPS):
+            c = (_hi32(c, y_lo, y_hi) + c) & M32
+        return _xor4(c)
     if not wide:
         a, b = torch.ones_like(yv), torch.zeros_like(yv)
         y_lo, y_hi = yv & 0xFFFF, yv >> 16
@@ -140,7 +156,11 @@ def _carry_t(t: torch.Tensor) -> torch.Tensor:
 
 
 def _mul_t(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """pallas_msm._mul_t on (C, 18, n) by (18, n)."""
+    """pallas_msm._mul_t on (C, 18, n) by (18, n).  Every limb is below
+    2^16, as K12's column-sum form needs (the relaxed limbs are at most
+    2^15 + 2^11)."""
+    _fits(a, "_mul_t limb of a", 16)
+    _fits(b, "_mul_t limb of b", 16)
     acc = torch.zeros(a.shape[0], 2 * NL15, a.shape[2], dtype=torch.int64, device=a.device)
     for j in range(NL15):
         p = _fits(a * b[j], "_mul_t product")
@@ -307,14 +327,17 @@ def _operands(x: torch.Tensor, y: torch.Tensor, rows, reps: int, what: str) -> i
     return x.shape[1]
 
 
-def probe_imad(x: torch.Tensor, y: torch.Tensor, reps: int, wide: bool = False) -> torch.Tensor:
-    """K11: (rows, T) int32 x, y -> (rows, T), every element a lane."""
+def probe_imad(x: torch.Tensor, y: torch.Tensor, reps: int, wide: bool = False, hi: bool = False) -> torch.Tensor:
+    """K11: (rows, T) int32 x, y -> (rows, T), every element a lane; the
+    u32 chain, or the ``wide`` or the ``hi`` one."""
     _operands(x, y, None, reps, "probe_imad")
+    if wide and hi:
+        raise ValueError("probe_imad: one form, wide or hi")
     if not K._on_card(x):
-        return probe_imad_plain(x, y, reps, wide)
+        return probe_imad_plain(x, y, reps, wide, hi)
     out = torch.empty_like(x)
     if out.numel():
-        K._launch("probe_imad", "probe_imad", x, y, out, out.numel(), reps, int(wide))
+        K._launch("probe_imad", "probe_imad", x, y, out, out.numel(), reps, 2 if hi else int(wide))
     return out
 
 

@@ -83,9 +83,15 @@ def verify_share(
 ) -> Exception | None:
     """Verify this process's round-robin share of ``txs`` against
     ``state``, its replica; the exception that rejected the share, or None.
-    Rank and world size default to torch.distributed's."""
+    ``accel`` is ``verify_batch``'s: None is ``default_accelerator()``, the
+    card, resolved before any share is verified (it raises without one);
+    ``"host"`` the reference's host path.  Rank and world size default to
+    torch.distributed's."""
     import torch.distributed as dist
 
+    from ..ops.accel import resolve_accel
+
+    accel = resolve_accel(accel)
     if process_index is None:
         process_index = dist.get_rank()
     if num_processes is None:
@@ -109,7 +115,8 @@ def verify_batch_distributed(
 ) -> bool:
     """Verify ``txs`` sharded across processes; True iff EVERY shard
     verified.  ``state`` is this process's replica (mutated by its own
-    shard only, the reference's clone-per-worker semantics).  A shard whose
+    shard only, the reference's clone-per-worker semantics); ``accel`` is
+    ``verify_share``'s (None: the card).  A shard whose
     verification raises counts as rejected, as in the JAX package
     (``verify_share`` returns what it raised)."""
     return all_reduce_accept(verify_share(txs, state, accel, process_index, num_processes) is None)

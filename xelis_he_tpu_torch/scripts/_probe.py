@@ -119,6 +119,8 @@ PROBES = {p.label: p for p in [
           lambda x, y, r: PR.probe_imad(x, y, r), lambda x, y, r: PR.probe_imad_plain(x, y, r)),
     Probe("imad_wide", "probe_imad", 18, (15,) * 18, 18 * PR.MULADDS_IMAD, 1 << 10,
           lambda x, y, r: PR.probe_imad(x, y, r, True), lambda x, y, r: PR.probe_imad_plain(x, y, r, True)),
+    Probe("imad_hi", "probe_imad", 18, (15,) * 18, 18 * PR.MULADDS_IMAD, 1 << 10,
+          lambda x, y, r: PR.probe_imad(x, y, r, hi=True), lambda x, y, r: PR.probe_imad_plain(x, y, r, hi=True)),
     *(Probe(f"mul15_b{b}", "probe_mul15", 18, (15,) * 18, PR.CHAINS * PR.MULADDS_MUL_T, 1 << 13,
             lambda x, y, r, b=b: PR.probe_mul15(x, y, r, b), PR.probe_mul15_plain)
       for b in PR.MUL15_BLOCKS),

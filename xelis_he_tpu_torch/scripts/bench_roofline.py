@@ -9,7 +9,10 @@ name and power limit:
      multiply-add rate (Gmul/s), beside 132 SMs x 64 INT32 lanes x the max
      SM clock; vpu_u32_mul_per_sec_wide: the same chain as a 32 x 32 ->
      64-bit multiply-add, and the issue slots a wide one takes;
-  2. field_muls_per_sec_chip: K12, the JAX kernels' 18 x 15-bit _mul_t;
+     vpu_u32_mulhi_per_sec: the chain as the high word's multiply-add
+     (mad.hi.u32), and the issue slots one takes;
+  2. field_muls_per_sec_chip: K12, the JAX kernels' 18 x 15-bit _mul_t
+     (in its column-sum form);
      field_muls_per_sec_chip_fe13: K13, their 20 x 13-bit _mul13;
   3. port_{fe,fe15}_{mul,sq}_per_sec: K14, the port's own field
      multiplication and squaring on its two tiers;
@@ -27,7 +30,7 @@ from ..ops import kernels as K
 from ..ops import probes as PR
 from . import _probe as B
 
-LABELS = ("imad", "imad_wide", "mul15_b256", "mul13_3pass", "fe_mul", "fe_sq", "fe15_mul", "fe15_sq")
+LABELS = ("imad", "imad_wide", "imad_hi", "mul15_b256", "mul13_3pass", "fe_mul", "fe_sq", "fe15_mul", "fe15_sq")
 
 
 def run(args, cache: dict | None = None, log=print) -> list[dict]:
@@ -45,10 +48,14 @@ def run(args, cache: dict | None = None, log=print) -> list[dict]:
     out.append(B.emit(B.line(m["imad_wide"], "vpu_u32_mul_per_sec_wide", 1e9, "Gmul/s",
                              slots_per_wide=peak / wide,
                              note="acc = lo(acc) y + acc, 64-bit: one 32x32->64 multiply-add a step"), info))
+    hi = m["imad_hi"]["peak"]["muladds_per_s"]
+    out.append(B.emit(B.line(m["imad_hi"], "vpu_u32_mulhi_per_sec", 1e9, "Gmul/s", slots_per_hi=peak / hi,
+                             note="x = hi32(x y) + x: one mad.hi.u32 a step"), info))
     fm = m["mul15_b256"]["peak"]["ops_per_s"]
     out.append(B.emit(B.line(m["mul15_b256"], "field_muls_per_sec_chip", 1e6, "Mmul/s",
                              pct_of_u32_bound=100.0 * fm * PR.MULADDS_MUL_T / peak,
-                             note="18x15-bit _mul_t: 324 products split at bit 15, 20 constant multiplies"), info))
+                             note="18x15-bit _mul_t: 324 products, 20 constant multiplies, as column sums"),
+                      info))
     fm13 = m["mul13_3pass"]["peak"]["ops_per_s"]
     out.append(B.emit(B.line(m["mul13_3pass"], "field_muls_per_sec_chip_fe13", 1e6, "Mmul/s", vs_fe15=fm13 / fm,
                              pct_of_u32_bound=100.0 * fm13 * PR.MULADDS_MUL13["3pass"] / peak,

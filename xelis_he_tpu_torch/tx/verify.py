@@ -1425,10 +1425,12 @@ def verify_batch(
     """Whole-block verification: ONE sigma MSM + ONE range-proof mega-MSM
     (verify.rs:487-517).
 
-    With ``accel`` (ops.accel.Accelerator): every encoding of the block is
-    decompressed in one fused device call, every Schnorr signature (tx +
-    multisig) is verified in one fused device call, and both mega-MSMs run
-    on the device.
+    On ``accel`` (an ops.accel.Accelerator; None, the default, is
+    ``ops.accel.default_accelerator()``, the card, which raises without
+    one): every encoding of the block is decompressed in one fused device
+    call, every Schnorr signature (tx + multisig) is verified in one fused
+    device call, and both mega-MSMs run on the device.  ``accel="host"``
+    asks for the reference's host path: pyref, with ``msm`` for both MSMs.
 
     With ``transactional=True``, state writes are buffered in an overlay
     and flushed only after the whole batch verified — a failing batch
@@ -1436,8 +1438,10 @@ def verify_batch(
     partial-mutation behavior, SURVEY.md §5; no per-attempt ledger clone
     needed)."""
     from ..metrics import metrics, span
+    from ..ops.accel import HOST, resolve_accel
     from ..types import clear_decompress_cache, set_block_lazy
 
+    accel = resolve_accel(accel)
     if transactional:
         from .transactional import TransactionalState
 
@@ -1451,8 +1455,9 @@ def verify_batch(
     # measurement on the card has shown a block size below which the host
     # verifies faster.  ``verify_batch.host_path_blocks`` counts blocks that
     # were given an accelerator and verified on the host all the same: no
-    # path does that, and the counter must read 0.
-    if accel is None or not txs:
+    # path does that, and the counter must read 0.  Only ``accel="host"``
+    # takes the host path.
+    if accel == HOST or not txs:
         sigma_batch_collector = BatchCollector(msm_fn=msm)
         prepared = []
         for tx in txs:
@@ -1541,8 +1546,15 @@ def verify_batch(
         accel.end_block()
 
 
-def verify(tx: Transaction, state: BlockchainVerificationState, msm=multiscalar_mul) -> None:
-    """Single-transaction verification (verify.rs:519-542)."""
+def verify(tx: Transaction, state: BlockchainVerificationState, msm=None) -> None:
+    """Single-transaction verification (verify.rs:519-542).  Both MSMs run
+    through ``msm``: by default ``default_accelerator().msm``, the card
+    (which raises without one); pyref's ``multiscalar_mul`` asks for the
+    host."""
+    if msm is None:
+        from ..ops.accel import default_accelerator
+
+        msm = default_accelerator().msm
     sigma_batch_collector = BatchCollector(msm_fn=msm)
     transcript, commitments = pre_verify(tx, state, sigma_batch_collector)
 
